@@ -1,14 +1,15 @@
 # SPDX-License-Identifier: Apache-2.0
-"""Composite force-accuracy check for bench.py (f32 chip vs f64 CPU).
+"""Composite force-accuracy check for bench.py (f32 device vs f64 CPU).
 
 Builds a small replica of the headline composite system and computes
-DFT-D3 + real-space Coulomb + PME reciprocal forces.
+DFT-D3 + real-space Coulomb + PME reciprocal forces; ``build_system`` also
+makes the full-size composite for bench.py and chip_smoke.py.
 
 Run as a script with ``ref`` to write the f64 CPU reference
-(``/tmp/bench_acc_ref.npz``); bench.py imports :func:`compute_forces` to
-evaluate the same stages on-chip in f32 (per D3 variant) and
-:func:`relative_errors` to fold ``force_max_rel_err`` into its JSON detail
-(round-1 VERDICT weak #6: BASELINE's metric is speed AND force agreement).
+(``benchmarks/data/bench_acc_ref.npz``); bench.py imports
+:func:`compute_forces` to evaluate the same stages on the device in f32
+and :func:`relative_errors` to fold ``force_max_rel_err`` into its JSON
+detail (BASELINE's metric is speed AND force agreement).
 """
 
 import os
@@ -25,11 +26,9 @@ ALPHA = 0.35
 MESH = (32, 32, 32)
 ZMAX = 94
 # The f64 reference is committed in-repo (keyed by REF_VERSION below) so a
-# cold driver run never pays the ~13-min CPU rebuild (round-2 VERDICT #1);
-# the /tmp path is only used when regenerating after a parameter change.
+# cold run never pays the ~13-min CPU rebuild.
 REF_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "data", "bench_acc_ref.npz")
-REF_TMP_PATH = "/tmp/bench_acc_ref.npz"
 
 
 def load_reference():
@@ -39,7 +38,7 @@ def load_reference():
     /tmp cache matches REF_VERSION (caller should then rebuild via
     ``python benchmarks/composite_accuracy.py ref``).
     """
-    for path in (REF_PATH, REF_TMP_PATH):
+    for path in (REF_PATH,):
         try:
             cached = np.load(path)
             if str(cached["version"]) == REF_VERSION:
@@ -75,9 +74,7 @@ def build_system(n_rep=N_REP, seed=0):
     Casimir-Polder hetero combination; see the provenance tiers in
     d3_data.py), unit-converted from atomic units to the benchmark's
     Angstrom coordinates (rcov, r4r2 x autoang; C6 x autoang^6 — exact,
-    energies come out in Hartree with Angstrom positions).  Until round 4
-    this stage ran on synthetic random-element tables; round-4 VERDICT
-    task #2 requires the headline physics to be real.  Conditioning notes
+    energies come out in Hartree with Angstrom positions).  Conditioning notes
     that shaped the old synthetic tables still hold and are satisfied by
     the real data: CN lands where dC6/dCN is tame (here the crystal CN
     ~7-17 saturates the two-point reference grid, so dC6/dCN ~ 0), and

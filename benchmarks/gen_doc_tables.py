@@ -1,190 +1,75 @@
 # SPDX-License-Identifier: Apache-2.0
-"""Render the numeric tables of docs/benchmarks.md from committed results.
+"""Render the reference's published H100 rows into docs/benchmarks.md.
 
-Round-2 and round-3 both shipped docs whose numbers contradicted the
-CSVs (stale rounds, superseded measurements).  The fix is structural:
-every number in docs/benchmarks.md now lives between AUTOGEN markers and
-is rendered by this script from ``benchmarks/results/*.csv`` and the
-newest ``BENCH_r*.json`` — and ``tests/test_docs_consistency.py`` fails
-whenever the committed docs drift from the committed data.
+The yardstick of this library is the reference's published H100 table in
+``BASELINE.md``.  ``docs/benchmarks.md`` carries the same rows beside a
+column for this library's numbers, which stay "to be measured here" until
+a benchmark run on the card fills them.  The table between the AUTOGEN
+markers is rendered from ``BASELINE.md`` by this script, and
+``tests/test_docs_consistency.py`` runs it with ``--check`` so the docs
+cannot drift from the yardstick.
 
-Usage:
-    python benchmarks/gen_doc_tables.py          # rewrite docs in place
+Usage::
+
+    python benchmarks/gen_doc_tables.py          # rewrite the table
     python benchmarks/gen_doc_tables.py --check  # exit 1 on drift
 """
-from __future__ import annotations
 
-import csv
-import glob
-import json
 import os
 import re
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-RESULTS = os.path.join(ROOT, "benchmarks", "results")
-DOCS = os.path.join(ROOT, "docs", "benchmarks.md")
+BASELINE = os.path.join(ROOT, "BASELINE.md")
+DOC = os.path.join(ROOT, "docs", "benchmarks.md")
+BEGIN = "<!-- AUTOGEN:reference (benchmarks/gen_doc_tables.py) -->"
+END = "<!-- AUTOGEN:reference END -->"
+NOT_MEASURED = "to be measured here"
 
 
-def load_csv(name):
-    path = os.path.join(RESULTS, name)
-    with open(path, newline="") as f:
-        return list(csv.DictReader(f))
+def reference_rows(text):
+    """(section, metric, value) for every timed H100 row of BASELINE.md."""
+    rows, section = [], None
+    for line in text.splitlines():
+        if line.startswith("## "):
+            section = line[3:].split("(")[0].strip()
+            continue
+        cells = [c.strip() for c in line.strip().strip("|").split("|")]
+        if (section and len(cells) >= 3 and cells[2] == "H100"
+                and re.search(r"\d", cells[1])):
+            rows.append((section, cells[0], cells[1]))
+    return rows
 
 
-def lookup(name, match, field):
-    """The value of ``field`` in the unique row of ``name`` matching ``match``."""
-    rows = [r for r in load_csv(name)
-            if all(r[k] == str(v) for k, v in match.items())]
-    if len(rows) != 1:
-        raise KeyError(f"{name}: {match} matched {len(rows)} rows")
-    return rows[0][field]
-
-
-def latest_bench():
-    """The committed headline artifact written by bench.py itself.
-
-    Reading the driver's ``BENCH_r*.json`` here was round-4 weak #1: the
-    driver writes that file *after* the round's final commit, so the
-    rendered docs were stale by construction at every snapshot.  bench.py
-    now persists ``benchmarks/results/headline_bench.json`` (and refreshes
-    the docs) whenever it completes, so docs + artifact always move
-    together in the same commit.
-    """
-    path = os.path.join(RESULTS, "headline_bench.json")
-    if not os.path.exists(path):
-        return None
-    with open(path) as f:
-        return json.load(f)
-
-
-def md_table(header, rows):
-    out = ["| " + " | ".join(header) + " |",
-           "|" + "|".join("---" for _ in header) + "|"]
-    out += ["| " + " | ".join(str(c) for c in r) + " |" for r in rows]
+def render(rows):
+    out = ["| Section | Reference metric | H100 (reference) | This library |",
+           "|---|---|---|---|"]
+    out += [f"| {s} | {m} | {v} | {NOT_MEASURED} |" for s, m, v in rows]
     return "\n".join(out)
 
 
-def render_headline():
-    b = latest_bench()
-    if b is None:
-        return "_no headline_bench.json present_"
-    p = b.get("parsed", b)  # accept both the raw result and a driver wrapper
-    if p.get("value") is None:
-        return "_no headline_bench.json present_"
-    d = p["detail"]
-    rows = [
-        ("Neighbor structure build (halo grid)",
-         f"{d['nl_build_ms']} ms", "9.6 Å cutoff"),
-        ("DFT-D3(BJ) E+F+CN (`engine=\"window\"`)",
-         f"{d['dftd3_ms']} ms", "9.6 Å cutoff"),
-        ("Real-space erfc-damped Coulomb E+F",
-         f"{d.get('coulomb_real_ms', '—')} ms", "9.6 Å, α=0.35"),
-        ("PME reciprocal E+F",
-         f"{d['pme_recip_forces_ms_128^3']} ms", "128³ mesh, order 4"),
-        ("**Headline (NL + D3 + PME)**",
-         f"**{p['value']} µs/atom (`vs_baseline` {p['vs_baseline']})**",
-         "official BENCH artifact"),
-    ]
-    return md_table(("Stage", "TPU (this library)", "Config"), rows)
+def splice(doc, body):
+    a, b = doc.index(BEGIN) + len(BEGIN), doc.index(END)
+    return doc[:a] + "\n" + body + "\n" + doc[b:]
 
 
-def render_suite(name, title, cols):
-    rows = load_csv(name)
-    return (f"{title} (`benchmarks/results/{name}`):\n\n"
-            + md_table(cols, [[r[c] for c in cols] for r in rows]))
-
-
-SUITES = [
-    ("dftd3_benchmark_tpu-chip.csv",
-     "DFT-D3 suite, out-of-the-box path (zmax 16 random elements, 9.0 Å, "
-     "includes the grid build; the 21.2 Å flagship row excludes the build "
-     "and is 2-element CsCl — H100: 16.454 ms)",
-     ("method", "atoms", "time_ms", "us_per_atom")),
-    ("dftd3_zmax_benchmark_tpu-chip.csv",
-     "DFT-D3 element-diversity scaling at 97k atoms (includes build)",
-     ("engine", "atoms", "zmax", "time_ms_incl_build", "us_per_atom")),
-    ("neighborlist_benchmark_tpu-chip.csv",
-     "Neighbor-structure build suite (4.5 Å)",
-     ("method", "atoms", "time_ms", "us_per_atom")),
-    ("neighborlist_batch_benchmark_tpu-chip.csv",
-     "At-scale points (H100: batch 8.39M = 300.2 ms; its 1M single-system "
-     "row FAILED)",
-     ("method", "atoms", "systems", "time_ms", "us_per_atom")),
-    ("pme_benchmark_tpu-chip.csv",
-     "PME reciprocal (single system, energies)",
-     ("method", "atoms", "mesh", "time_ms", "us_per_atom")),
-    ("pme_batch_benchmark_tpu-chip.csv",
-     "Batched PME reciprocal, 64×2,000 atoms (H100: 5.76 ms energies)",
-     ("method", "atoms", "systems", "mesh", "time_ms")),
-    ("dftd3_batch_benchmark_tpu-chip.csv",
-     "Batched DFT-D3, 128×2,000 atoms (H100 matched 21.2 Å config: "
-     "46.0 ms)",
-     ("method", "atoms", "systems", "time_ms", "us_per_atom")),
-    ("ewald_benchmark_tpu-chip.csv",
-     "Batched Ewald reciprocal (H100 energies: 64×2,000 = 24.876 ms, "
-     "16×2,000 = 7.467, 4×16,000 = 31.894)",
-     ("method", "atoms", "systems", "time_ms")),
-]
-
-
-def render_all():
-    parts = {"headline": render_headline()}
-    suite_md = []
-    for name, title, cols in SUITES:
-        try:
-            suite_md.append(render_suite(name, title, cols))
-        except FileNotFoundError:
-            suite_md.append(f"_{name} not present_")
-    parts["suites"] = "\n\n".join(suite_md)
-    return parts
-
-
-def splice(text, key, body):
-    begin = f"<!-- AUTOGEN:{key} (benchmarks/gen_doc_tables.py) -->"
-    end = f"<!-- AUTOGEN:{key} END -->"
-    pattern = re.compile(re.escape(begin) + r".*?" + re.escape(end),
-                         re.DOTALL)
-    if not pattern.search(text):
-        raise SystemExit(f"docs missing AUTOGEN markers for {key!r}")
-    return pattern.sub(begin + "\n" + body + "\n" + end, text)
-
-
-def rewrite_docs():
-    """Regenerate docs/benchmarks.md in place (used by bench.py at exit)."""
-    with open(DOCS) as f:
-        text = f.read()
-    new = text
-    for key, body in render_all().items():
-        new = splice(new, key, body)
-    if new != text:
-        with open(DOCS, "w") as f:
-            f.write(new)
-    return new != text
-
-
-def main():
-    check = "--check" in sys.argv
-    with open(DOCS) as f:
-        text = f.read()
-    new = text
-    for key, body in render_all().items():
-        new = splice(new, key, body)
-    if check:
-        if new != text:
-            sys.stderr.write(
-                "docs/benchmarks.md is stale vs benchmarks/results/*.csv "
-                "— run python benchmarks/gen_doc_tables.py\n")
-            sys.exit(1)
-        print("docs consistent")
-        return
-    if new != text:
-        with open(DOCS, "w") as f:
-            f.write(new)
-        print("docs/benchmarks.md updated")
-    else:
-        print("docs already consistent")
+def main(argv):
+    with open(BASELINE) as f:
+        body = render(reference_rows(f.read()))
+    with open(DOC) as f:
+        doc = f.read()
+    new = splice(doc, body)
+    if "--check" in argv:
+        if new != doc:
+            print("docs/benchmarks.md reference table is stale vs "
+                  "BASELINE.md; run python benchmarks/gen_doc_tables.py",
+                  file=sys.stderr)
+            return 1
+        return 0
+    with open(DOC, "w") as f:
+        f.write(new)
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main(sys.argv[1:]))

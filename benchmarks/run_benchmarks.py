@@ -1,29 +1,31 @@
 # SPDX-License-Identifier: Apache-2.0
-"""Benchmark suite driver: YAML config -> CSV results.
+"""Benchmark suite driver: JSON config -> CSV results.
 
 Counterpart of the reference's per-domain benchmark runners
 (benchmarks/neighborlist/benchmark_neighborlist.py etc.): runs the
 neighbor-list, DFT-D3, PME, and batched-Ewald benchmarks on the current
-default device and writes one CSV per domain.
+default device and writes one CSV per domain, named after the device
+(``jax.devices()[0].device_kind``).
 
-Usage:  python benchmarks/run_benchmarks.py [--config benchmarks/benchmark_config.yaml]
+Usage:  python benchmarks/run_benchmarks.py [--config benchmarks/benchmark_config.json]
 """
 
 from __future__ import annotations
 
 import argparse
 import csv
+import json
 import os
+import re
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
-import yaml
 import jax
 import jax.numpy as jnp
 
-from benchmarks.harness import measure, perturb_positions
+from benchmarks.harness import configure_compile_cache, measure, perturb_positions
 
 
 def crystal(n_rep, a):
@@ -163,10 +165,8 @@ def bench_dftd3(cfg, label, outdir, iters):
     if cfg.get("matched_flagship"):
         # the reference's flagship single-system config: 85,750-atom CsCl
         # at 21.2 A (H100 16.454 ms, D3 time EXCLUDING the neighbor
-        # build per the reference protocol, BASELINE.md:29).  The
-        # cost-model geometry (anisotropic (12,12,6), cap 112) measured
-        # 27.09 ms D3-only vs 50-1956 ms for uniform bins_per_cutoff
-        # 2..5 (benchmarks/r5_d3_21A_probe.py).
+        # build per the reference protocol, BASELINE.md:29), on the
+        # cost-model geometry a user gets from choose_grid_geometry.
         from benchmarks.composite_accuracy import (
             D3_A1, D3_A2, D3_S8, build_system,
         )
@@ -204,7 +204,7 @@ def bench_dftd3(cfg, label, outdir, iters):
             gg = build_atom_grid(p, cell, pbc, dims, radius, cap,
                                  origin=origin)
             return grid_dftd3(gg, numbers_m, *tabs, mcut,
-                              D3_A1, D3_A2, D3_S8, engine="window")
+                              D3_A1, D3_A2, D3_S8)
 
         t_b = measure(mbuild, dep, (pos,), iters=4)
         t_t = measure(mstep, dep, (pos,), iters=max(iters // 2, 2))
@@ -449,12 +449,15 @@ def bench_pme_batch(cfg, label, outdir, iters):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", default=os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), "benchmark_config.yaml"))
+        os.path.dirname(os.path.abspath(__file__)), "benchmark_config.json"))
     ap.add_argument("--domains", nargs="*", default=None,
                     help="subset of: neighborlist dftd3 dftd3_batch pme ewald_batch")
     args = ap.parse_args()
-    cfg = yaml.safe_load(open(args.config))
-    label = cfg.get("hardware_label", "device")
+    with open(args.config) as f:
+        cfg = json.load(f)
+    configure_compile_cache()
+    label = re.sub(r"[^a-z0-9]+", "-",
+                   jax.devices()[0].device_kind.lower()).strip("-")
     outdir = cfg.get("output_dir", "benchmarks/results")
     iters = int(cfg.get("iters", 4))
 

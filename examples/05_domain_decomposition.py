@@ -2,7 +2,7 @@
 """Spatial domain decomposition: the grid sweep sharded over a device mesh.
 
 The cell grid's z axis is split into slabs, one per device; inter-slab
-pair interactions ride a ring of ``ppermute`` halo exchanges over ICI
+pair interactions ride a ring of ``ppermute`` halo exchanges
 (see ``nvalchemiops_tpu/parallel/domain.py``).  Runs on any JAX device
 set — here we force an 8-device virtual CPU mesh so the example works
 everywhere:

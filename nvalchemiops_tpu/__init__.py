@@ -1,8 +1,8 @@
 # SPDX-License-Identifier: Apache-2.0
-"""nvalchemiops_tpu — TPU-native JAX/Pallas kernel library for atomistic simulation.
+"""nvalchemiops_tpu — JAX kernel library for atomistic simulation.
 
-A from-scratch rebuild of the capabilities of NVIDIA's ``nvalchemi-toolkit-ops``
-(reference: /root/reference, v0.2.0) designed for TPU hardware:
+A from-scratch JAX rebuild of the capabilities of NVIDIA's
+``nvalchemi-toolkit-ops`` (v0.2.0):
 
 - Batched neighbor-list construction (brute-force O(N^2) and cell-list O(N),
   single and dual cutoff, single-system and batched) emitting fixed-capacity
@@ -13,14 +13,14 @@ A from-scratch rebuild of the capabilities of NVIDIA's ``nvalchemi-toolkit-ops``
 - Supporting B-spline mesh interpolation, spherical harmonics, and GTO math.
 
 Where the reference implements NVIDIA Warp kernels bridged to torch.autograd,
-this library implements vectorized XLA formulations and Pallas TPU kernels
-behind jit-friendly functional APIs, with ``jax.custom_vjp`` providing the
+this library implements vectorized XLA formulations behind jit-friendly
+functional APIs, with ``jax.custom_vjp`` providing the
 energy -> force differentiation contract.
 
 The scatter/atomics-heavy patterns of the CUDA original are re-architected as
 gather + top_k compaction (neighbor packing), sort + binary-search binning
-(cell lists), and dense matmul formulations (Ewald reciprocal space) — the
-idioms that run at speed-of-light on TPU vector/matrix units.
+(cell lists), and dense matmul formulations (Ewald reciprocal space); the
+reference's gather/neighbor-matrix formulations are kept beside them.
 """
 
 __version__ = "0.2.0"

@@ -1,11 +1,9 @@
 # SPDX-License-Identifier: Apache-2.0
-"""Halo-padded atom grid: the TPU-native neighbor engine.
+"""Halo-padded atom grid: the at-scale neighbor engine.
 
 The reference's cell list is CSR bins + per-thread sweeps with atomic
-inserts (cell_list.py:372-556) — a pattern built around fast random access,
-which TPUs do not have (measured: element gathers run ~1e8 elements/s while
-dense VPU/MXU traffic runs ~1e12).  This module re-architects neighbor
-enumeration so the hot path contains NO gathers at all:
+inserts (cell_list.py:372-556).  This module enumerates neighbors with
+dense, statically shaped operations instead — no per-pair gathers:
 
 1. **Build** (one payload-carrying bucket sort + one monotone row gather):
    atoms are binned into a fixed-capacity spatial grid stored as dense
@@ -18,13 +16,14 @@ enumeration so the hot path contains NO gathers at all:
 3. **Pair sweep**: for every cell offset ``d`` in the (2R+1)^3 sweep, the
    candidate planes are a *static slice* of the halo grid — so pairing
    "every atom in cell c vs every atom in cell c+d" is a dense
-   ``[Ncells, cap, cap]`` broadcast.  A ``lax.scan`` over offsets streams
-   these blocks through a user kernel (Coulomb, coordination numbers, ...).
+   ``[Ncells, cap, cap]`` broadcast, streamed through a user kernel
+   (Coulomb, coordination numbers, ...).
 
 The price is slack (cap^2/occupancy^2 and cube-vs-sphere overcount, ~6-10x
-more candidate pairs than a compacted list); the win is that every candidate
-costs a few VPU flops instead of a serialized gather.  On TPU that trade is
-~2 orders of magnitude in favor of the grid.
+more candidate pairs than a compacted list); the gain is that every
+candidate costs a few flops instead of a gather.  The reference's
+gather-based formulation is kept beside it (neighborlist/, the matrix
+paths) as the reference.
 
 Requires R <= cells-per-dimension on periodic axes (cutoff below the box
 size); smaller boxes use the streaming/naive paths instead.
@@ -70,6 +69,7 @@ __all__ = [
     "scatter_to_grid",
     "gather_from_grid",
     "use_slot_gather",
+    "row_sweep_slots",
 ]
 
 
@@ -123,12 +123,8 @@ def estimate_grid_geometry(cell, pbc, cutoff: float, total_atoms: int,
     face = 1.0 / np.linalg.norm(inv_t, axis=1)  # distances between cell faces
     bin_target = cutoff / max(bins_per_cutoff, 1)
     # NOTE: f64 noise in the cell inverse can truncate an exact multiple
-    # (243/9 -> 26.999... -> 26 bins).  Measured on chip at 531k atoms,
-    # the "fixed" 27-bin geometry is 1.6x SLOWER than 26 bins: cx=27's
-    # divisors force G=3 / M=96 super-chunks (misaligned) while 26 bins
-    # at cap 64 give G=2 / M=128 exactly.  Keep plain truncation — any
-    # bins >= cutoff geometry is valid, and this one measures faster;
-    # a proper geometry search would score dims x origin x alignment.
+    # (243/9 -> 26.999... -> 26 bins).  Any bins >= cutoff geometry is
+    # valid; choose_grid_geometry searches dims x origin x capacity.
     cpd = np.maximum((face / bin_target).astype(np.int64), 1)
     radius = np.ceil(cutoff * cpd / face).astype(np.int64)
     pbc_np = np.asarray(jax.device_get(pbc), dtype=bool).reshape(-1)[:3]
@@ -140,7 +136,7 @@ def estimate_grid_geometry(cell, pbc, cutoff: float, total_atoms: int,
     mean_occ = total_atoms / max(np.prod(cpd), 1)
     # Poisson-safe headroom: low-occupancy grids need several sigma of slack
     cap_est = max(mean_occ / target_occupancy, mean_occ + 5.0 * np.sqrt(mean_occ + 1.0))
-    # round to the f32 sublane tile: cap is the second-to-last dim of every
+    # round cap to a multiple of 8: cap is the second-to-last dim of every
     # pair block and a non-multiple-of-8 cap measurably degrades fusions
     cap = int(np.ceil(max(cap_est, 8.0) / 8)) * 8
     # dims ordered (Cz, Cy, Cx) for plane layout, radius likewise
@@ -195,11 +191,7 @@ def build_atom_grid(positions, cell, pbc, dims, radius, cap,
     # bucket sort as extra sort operands, locate each cell's run with a
     # vectorized binary search, and materialize the [ncells, cap] slot
     # planes with ONE row GATHER whose source indices are monotone
-    # (starts[c] + r).  The previous [N, 5] row scatter has random
-    # destinations, which forces the conservative XLA scatter lowering —
-    # measured 21 ms of the 25.6 ms 524k build vs 6.6 ms for this
-    # formulation (benchmarks/scatter_strategy_probe.py; unique_indices
-    # and sorted-destination scatters both stay >= 23 ms).
+    # (starts[c] + r) instead of a row scatter with random destinations.
     iota = jnp.arange(n, dtype=INDEX_DTYPE)
     sorted_lin, order, spx, spy, spz = jax.lax.sort(
         (lin, iota, wpx, wpy, wpz), num_keys=1, is_stable=True)
@@ -216,9 +208,7 @@ def build_atom_grid(positions, cell, pbc, dims, radius, cap,
         jnp.where(rank_sorted >= cap, ncells * cap,
                   sorted_lin * cap + rank_sorted))
 
-    # per-cell run starts via histogram + exclusive cumsum — NOT
-    # jnp.searchsorted, whose lowering costs 19.4 ms for 149k queries
-    # over 512k keys on chip vs 3.4 ms for this (build45_stage_probe)
+    # per-cell run starts via histogram + exclusive cumsum (one pass)
     counts = jnp.zeros((ncells,), INDEX_DTYPE).at[lin].add(1)
     starts = jnp.cumsum(counts) - counts
     src = starts[:, None] + jnp.arange(cap, dtype=INDEX_DTYPE)[None, :]
@@ -226,20 +216,13 @@ def build_atom_grid(positions, cell, pbc, dims, radius, cap,
     # flat [slots] row gather with TRULY SORTED indices: invalid slots are
     # clamped to the cell's run END (starts+counts), which is exactly the
     # next cell's first index — the flat sequence stays globally
-    # non-decreasing, so indices_are_sorted=True is valid and keeps the
-    # fast sorted-gather lowering (8.7 ms vs 16.0 clamped-to-fill-row at
-    # 262k atoms / 1.19M slots, benchmarks/r4_slotrow_gather_probe.py).
-    # Clamping to a CONSTANT fill row breaks sortedness (slow); leaving
-    # src UNCLAMPED (starts+arange(cap)) back-jumps at every non-full
-    # cell boundary, and the TPU sorted-gather lowering then reads wrong
-    # rows for VALID slots too — on-chip D3 energy at an (11,11,11)/cap16
-    # geometry was off by 1.1e-4 relative while CPU (which ignores the
-    # hint) agreed with f64 (r4_smoke_diag_probe / r4_chip_vs_f64_probe).
-    # Out-of-run slots read the next cell's first atom (or the cap-row
-    # zero pad at the end) and are overwritten by the fill select below.
-    # A vmapped [cap, 4] dynamic_slice per cell measured 157 ms
-    # (serializes per cell); the random-destination row scatter 21 ms;
-    # sorted-unique scatter 11.7.
+    # non-decreasing, so indices_are_sorted=True is valid.  Clamping to a
+    # CONSTANT fill row would break sortedness; leaving src UNCLAMPED
+    # (starts+arange(cap)) back-jumps at every non-full cell boundary and
+    # makes the sortedness hint false, which a backend may turn into
+    # wrong rows for VALID slots.  Out-of-run slots read the next cell's
+    # first atom (or the cap-row zero pad at the end) and are overwritten
+    # by the fill select below.
     svals = jnp.concatenate(
         [jnp.stack([spx, spy, spz, order.astype(dtype)], axis=-1),
          jnp.zeros((cap, 4), dtype)], axis=0)
@@ -257,8 +240,8 @@ def build_atom_grid(positions, cell, pbc, dims, radius, cap,
 
     # Displacement-based validity: park every empty slot at a unique far-away
     # x so the d2 < cutoff^2 test alone excludes it from every pair sweep —
-    # no per-pair validity compares needed (each saved [M, W] op costs
-    # ~0.5 ms at 110k atoms).  Unique per-slot offsets (spacing >> box size)
+    # no per-pair validity compares needed.  Unique per-slot offsets
+    # (spacing >> box size)
     # keep parked slots out of range of each other; exact coincidences
     # (same-cell empties, self-images) fall to the d2 > eps guard.
     slot_iota = jnp.arange(ncells * cap, dtype=dtype).reshape(cz, cy, cx, cap)
@@ -326,9 +309,8 @@ def batch_build_atom_grid(positions, cells, pbc, dims, radius, cap,
     ``jax.vmap(build_atom_grid)`` loses all three lowerings the
     single-system build is made of — the payload-carrying sort becomes a
     batched sort, the histogram a batched scatter-add, and the monotone
-    slot-row take's ``indices_are_sorted`` fast path is dropped (measured
-    928.8 ms at 64×132,651 atoms on chip, 3.1× the H100's batch cell
-    list; round-4 VERDICT weak #2).  This builder keeps them flat:
+    slot-row take's ``indices_are_sorted`` hint is dropped.  This builder
+    keeps them flat:
 
     - ONE global sort over compound keys ``sys * ncells + cell`` (stable,
       so per-system ranks are identical to the single-system build),
@@ -407,13 +389,10 @@ def batch_build_atom_grid(positions, cells, pbc, dims, radius, cap,
     order_sys = order // jnp.asarray(npa, INDEX_DTYPE)
     order_local = (order - order_sys * npa).astype(dtype)
 
-    # slot planes via cap x per-payload 1-D monotone takes: the [slots]
-    # ROW take of a [n+cap, 4] payload matrix costs 476 ms at 20.1M
-    # slots on chip while cap separate [B*ncells] takes at starts + r
+    # slot planes via cap x per-payload 1-D monotone takes at starts + r
     # (clamped to the run end — min of two monotone sequences stays
-    # monotone, so indices_are_sorted holds per call) cost 134 ms for
-    # three payloads (benchmarks/r5_planes_variant_probe.py; take_flat,
-    # one flat 1-D take per payload, sits between at 182).
+    # monotone, so indices_are_sorted holds per call) instead of one
+    # [slots] row take of a [n+cap, 4] payload matrix.
     def slot_take(payload, fill):
         v = jnp.concatenate([payload, jnp.full((1,), fill, payload.dtype)])
         cols = [jnp.take(v, jnp.minimum(starts + r, ends),
@@ -499,11 +478,8 @@ def gather_from_grid(grid: AtomGrid, plane):
 def gather_rows_from_grid(grid: AtomGrid, planes):
     """One [slots, k] row gather for k interior planes -> k per-atom arrays.
 
-    Separate per-atom gathers each cost ~1 ms at 110k atoms; one row
-    gather of the stacked planes costs ~0.3 ms TOTAL
-    (benchmarks/multi_gather_probe.py: 4 scalar gathers 3.10 ms vs
-    stack+row gather 1.09, prestacked 0.29) — use this for every
-    multi-output epilogue (forces + energy/CN).
+    One row gather of the stacked planes replaces k separate per-atom
+    gathers — used by every multi-output epilogue (forces + energy/CN).
     """
     stacked = jnp.stack([p.reshape(-1) for p in planes], axis=-1)
     rows = stacked[jnp.minimum(grid.flat_slot, stacked.shape[0] - 1)]
@@ -514,18 +490,14 @@ def use_slot_gather(n: int, nslots: int) -> bool:
     """Static heuristic: build slot planes by gather or by scatter.
 
     The slot->atom row GATHER scales with the slot count; the atom->slot
-    row SCATTER scales with the atom count but pays the conservative
-    random-destination XLA lowering (measured per-row cost ratio ~7.6x:
-    524k atoms at 1.34x slot slack -> gather 3.7 ms vs scatter 20.9,
-    benchmarks/prop_plane_probe.py).  The exception is small vmapped
-    systems, where the gather regresses regardless of slack (the 64x2000
-    PME batch path measured 2x slower, pme_batch_engine_probe.py) — so
-    the discriminator is the atom count, with a slack ceiling where the
-    7.6x advantage provably drowns.
+    row SCATTER scales with the atom count but takes XLA's conservative
+    random-destination scatter lowering.  Large systems gather unless
+    the slot slack is extreme; small (typically vmapped) systems scatter.
+    The thresholds were tuned on an earlier accelerator and keep their
+    behaviour until they are measured again on the GPU.
 
-    ``NVALCHEMIOPS_SLOT_GATHER=0|1`` (trace-time, probe-only) forces the
-    answer — used by the A/B regression probes to measure both forms at
-    one config in separate processes.
+    ``NVALCHEMIOPS_SLOT_GATHER=0|1`` (trace-time) forces the answer, so
+    both forms can be measured at one config in separate processes.
     """
     env = os.environ.get("NVALCHEMIOPS_SLOT_GATHER")
     if env in ("0", "1"):
@@ -538,11 +510,9 @@ def scatter_rows_to_grid(grid: AtomGrid, values_list, fill=0.0):
 
     Slot -> atom is already materialized in the aid plane (trash slots
     point one past the end), so at scale the planes are a single row
-    GATHER from the fill-padded value rows — the row-scatter formulation
-    pays the conservative random-destination XLA scatter lowering
-    (measured at 524k/cap 40: 20.9 ms scatter vs 3.7 ms gather,
-    benchmarks/prop_plane_probe.py); small/slack-heavy cases keep the
-    scatter (see :func:`use_slot_gather`).  All values are cast to a
+    GATHER from the fill-padded value rows instead of a random-destination
+    row scatter; small/slack-heavy cases keep the scatter (see
+    :func:`use_slot_gather`).  All values are cast to a
     common dtype (the first array's); integer planes up to 2^24 survive
     a float round-trip exactly.
     """
@@ -795,193 +765,24 @@ def _coulomb_impl(grid: AtomGrid, q_plane, q_ext, cutoff, alpha, dims, radius, c
     return e + e2, fx + fx2, fy + fy2, fz + fz2
 
 
-@partial(jax.jit, static_argnames=("cutoff", "alpha", "dims", "radius", "cap",
-                                   "interpret"))
-def _coulomb_block_impl(grid: AtomGrid, q_plane, q_ext, cutoff: float,
-                        alpha: float, dims, radius, cap, interpret=False):
-    """Coulomb sweep on the fused super-chunk Pallas engine (block_sweep).
-
-    ``cutoff``/``alpha`` are static (one recompile per parameter set): kernel
-    bodies cannot close over traced scalars.
-    """
-    from nvalchemiops_tpu.pallas.block_sweep import block_sweep, pack_columns
-    from nvalchemiops_tpu.mathops.math import erfc_approx
-
-    dtype = grid.ext_px.dtype
-    cutoff_t = float(cutoff)
-    alpha_t = float(alpha)
-    two_over_sqrt_pi = 1.1283791670955126
-    cz, cy, cx = dims
-    own_cols = {
-        "s": pack_columns(
-            _interior(grid, grid.ext_px), _interior(grid, grid.ext_py),
-            _interior(grid, grid.ext_pz), q_plane,
-        )
-    }
-    ez, ey, ex = cz + 2 * radius[0], cy + 2 * radius[1], cx + 2 * radius[2]
-    cand_rows = {
-        "px": grid.ext_px.reshape(ez, ey, ex * cap),
-        "py": grid.ext_py.reshape(ez, ey, ex * cap),
-        "pz": grid.ext_pz.reshape(ez, ey, ex * cap),
-        "q": q_ext.reshape(ez, ey, ex * cap),
-    }
-
-    def body(own, crow, ccol, pair_ok):
-        s = own["s"]
-        dx = crow["px"] - s[:, 0:1]
-        dy = crow["py"] - s[:, 1:2]
-        dz = crow["pz"] - s[:, 2:3]
-        d2 = dx * dx + dy * dy + dz * dz
-        # parked empty slots fail the distance test (build_atom_grid)
-        ok = pair_ok & (d2 < cutoff_t * cutoff_t) & (d2 > 1e-20)
-        inv_r = jax.lax.rsqrt(jnp.where(ok, d2, 1.0))
-        qq = s[:, 3:4] * crow["q"]
-        if alpha_t > 0:
-            r = jnp.where(ok, d2, 1.0) * inv_r
-            ar = alpha_t * r
-            erfc_ar = erfc_approx(ar)
-            phi = erfc_ar * inv_r
-            mag = (
-                erfc_ar * inv_r + two_over_sqrt_pi * alpha_t * jnp.exp(-ar * ar)
-            ) * inv_r * inv_r
-        else:
-            phi = inv_r
-            mag = inv_r * inv_r * inv_r
-        e_pair = jnp.where(ok, 0.5 * qq * phi, 0.0)
-        ncoef = jnp.where(ok, -(qq * mag), 0.0)
-        mfx = ncoef * dx     # own-side force contribution (already negated)
-        mfy = ncoef * dy
-        mfz = ncoef * dz
-        return (e_pair, mfx, mfy, mfz), (e_pair, ("neg", mfx), ("neg", mfy), ("neg", mfz))
-
-    (e, fx, fy, fz), (e2, fx2, fy2, fz2) = block_sweep(
-        dims, radius, cap, own_cols, cand_rows, {}, body, 4, 4,
-        dtype=dtype, interpret=interpret,
-    )
-    e2, fx2, fy2, fz2 = (fold_halo(grid, a) for a in (e2, fx2, fy2, fz2))
-    return e + e2, fx + fx2, fy + fy2, fz + fz2
-
-
-@partial(jax.jit, static_argnames=("cutoff", "alpha", "dims", "radius", "cap",
-                                   "interpret"))
-def _coulomb_window_impl(grid: AtomGrid, q_plane, q_ext, cutoff: float,
-                         alpha: float, dims, radius, cap, interpret=False):
-    """Coulomb sweep on the pre-windowed per-cell Pallas engine.
-
-    Same math as ``_coulomb_impl`` on minimal lane-aligned candidate
-    windows (pallas/window_sweep.py); ``cutoff``/``alpha`` are static.
-    """
-    from nvalchemiops_tpu.mathops.math import erfc_approx
-    from nvalchemiops_tpu.pallas.block_sweep import pack_columns
-    from nvalchemiops_tpu.pallas.window_sweep import (
-        WINDOW_PARK, window_lane_width, window_rows, window_sweep,
-    )
-
-    dtype = grid.ext_px.dtype
-    cutoff_sq = float(cutoff) ** 2
-    alpha_t = float(alpha)
-    two_over_sqrt_pi = 1.1283791670955126
-    rx = radius[2]
-    lane_w = window_lane_width(cap, rx)
-
-    own_cols = {
-        "s": pack_columns(
-            _interior(grid, grid.ext_px), _interior(grid, grid.ext_py),
-            _interior(grid, grid.ext_pz), q_plane,
-        )
-    }
-    wrows = {
-        "px": window_rows(grid.ext_px, rx, cap, lane_w, park=WINDOW_PARK),
-        "py": window_rows(grid.ext_py, rx, cap, lane_w),
-        "pz": window_rows(grid.ext_pz, rx, cap, lane_w),
-        "q": window_rows(q_ext, rx, cap, lane_w),
-    }
-
-    def body(own, crow, ccolt, home):
-        s = own["s"]
-        dx = crow["px"] - s[:, 0:1][None]
-        dy = crow["py"] - s[:, 1:2][None]
-        dz = crow["pz"] - s[:, 2:3][None]
-        d2 = dx * dx + dy * dy + dz * dz
-        ok = (d2 < cutoff_sq) & (d2 > 1e-20)
-        ok = jnp.concatenate([ok[0:1] & home[None], ok[1:]], axis=0)
-        inv_r = jax.lax.rsqrt(jnp.where(ok, d2, 1.0))
-        qq = s[:, 3:4][None] * crow["q"]
-        if alpha_t > 0:
-            r = jnp.where(ok, d2, 1.0) * inv_r
-            ar = alpha_t * r
-            erfc_ar = erfc_approx(ar)
-            phi = erfc_ar * inv_r
-            mag = (
-                erfc_ar * inv_r
-                + two_over_sqrt_pi * alpha_t * jnp.exp(-ar * ar)
-            ) * inv_r * inv_r
-        else:
-            phi = inv_r
-            mag = inv_r * inv_r * inv_r
-        e_pair = jnp.where(ok, 0.5 * qq * phi, 0.0)
-        ncoef = jnp.where(ok, -(qq * mag), 0.0)
-        mfx = ncoef * dx     # own-side force contribution (already negated)
-        mfy = ncoef * dy
-        mfz = ncoef * dz
-        return ((e_pair, mfx, mfy, mfz),
-                (e_pair, ("neg", mfx), ("neg", mfy), ("neg", mfz)))
-
-    (e, fx, fy, fz), (e2, fx2, fy2, fz2) = window_sweep(
-        dims, radius, cap, own_cols, wrows, {}, body, 4, 4,
-        lane_w=lane_w, dtype=dtype, interpret=interpret,
-    )
-    e2, fx2, fy2, fz2 = (fold_halo(grid, a) for a in (e2, fx2, fy2, fz2))
-    return e + e2, fx + fx2, fy + fy2, fz + fz2
-
-
 def grid_coulomb_energy_forces(grid: AtomGrid, charges, cutoff, alpha=0.0,
                                engine: str | None = None):
     """(Damped-)Coulomb per-atom energies and forces via the grid sweep.
 
     Same physics contract as coulomb.pair_energies_forces; self-image pairs
     (r -> 0) are excluded by the r^2 > 0 guard like the reference kernels'
-    distance floor.  ``engine``: ``"xla"`` (default, pure-jnp row sweep),
-    ``"window"`` (pre-windowed per-cell Mosaic kernel,
-    pallas/window_sweep.py — minimal candidate slots), or ``"block"``
-    (fused super-chunk Mosaic kernel, pallas/block_sweep.py).
+    distance floor.  ``engine``: ``"xla"`` (the default and only engine,
+    the symmetric row sweep); any other name raises ``ValueError``.
     """
+    if engine not in (None, "xla"):
+        raise ValueError(
+            f"unknown grid Coulomb engine {engine!r}; expected 'xla'")
     q_plane = scatter_to_grid(grid, charges)
     q_ext = _extend_like(grid, q_plane, 0.0)
-    if engine is None:
-        # auto-select (same policy as grid_dftd3): the window Mosaic sweep
-        # measured 4.0-4.7 ms vs 4.9-6.1 (xla) at 110k atoms and 34 ms at
-        # 524k with x-blocking (benchmarks/window_531k_probe.py); TPU-only
-        # and only in the compile/VMEM-proven regime (one-register
-        # windows, x-blocked row blocks <= 2048 lanes)
-        from nvalchemiops_tpu.pallas.window_sweep import (
-            window_lane_width,
-            window_x_block,
-        )
-
-        lane_w = window_lane_width(grid.cap, grid.radius[2])
-        # lane_w > 128 windows run via the kernel's 128-lane sub-window
-        # split (see window_sweep.py) — the gate is capability-only
-        if (jax.default_backend() == "tpu"
-                and window_x_block(grid.dims[2], lane_w) * lane_w <= 2048):
-            engine = "window"
-    if engine == "window":
-        e, fx, fy, fz = _coulomb_window_impl(
-            grid, q_plane, q_ext, float(cutoff), float(alpha),
-            grid.dims, grid.radius, grid.cap,
-            jax.default_backend() != "tpu",
-        )
-    elif engine == "block":
-        e, fx, fy, fz = _coulomb_block_impl(
-            grid, q_plane, q_ext, float(cutoff), float(alpha),
-            grid.dims, grid.radius, grid.cap,
-            jax.default_backend() != "tpu",
-        )
-    else:
-        e, fx, fy, fz = _coulomb_impl(
-            grid, q_plane, q_ext, float(cutoff), float(alpha),
-            grid.dims, grid.radius, grid.cap
-        )
+    e, fx, fy, fz = _coulomb_impl(
+        grid, q_plane, q_ext, float(cutoff), float(alpha),
+        grid.dims, grid.radius, grid.cap
+    )
     energies, f1, f2, f3 = gather_rows_from_grid(grid, (e, fx, fy, fz))
     return energies, jnp.stack([f1, f2, f3], axis=-1)
 
@@ -1029,60 +830,38 @@ def choose_grid_origin(positions, cell, pbc, dims):
     return best
 
 
-# Fixed per-Mosaic-block cost in lane-slot equivalents (~200 ns block
-# setup / ~15 ps per lane-slot of the D3 CN pass, both fit on chip —
-# benchmarks/mosaic_floor_probe.py).  Discourages geometries with many
-# near-empty blocks without otherwise distorting the slot-count argmin.
-_WINDOW_BLOCK_COST = 16384
+def row_sweep_slots(dims, radius, cap: int) -> int:
+    """Candidate slots the symmetric row sweep visits for one geometry.
+
+    ``ncells * cap^2 * ((rx+1) + n_half * (2rx+1))`` with ``n_half`` the
+    half-space (z, y) offsets: the own-row band plus every other row's
+    full x window.  This is the cost model :func:`choose_grid_geometry`
+    minimizes.
+    """
+    rz, ry, rx = (int(r) for r in radius)
+    n_half = ((2 * rz + 1) * (2 * ry + 1) - 1) // 2
+    ncells = int(dims[0]) * int(dims[1]) * int(dims[2])
+    return ncells * cap * cap * ((rx + 1) + n_half * (2 * rx + 1))
 
 
 def choose_grid_geometry(positions, cell, pbc, cutoff: float,
                          dims_candidates=None):
-    """Score dims x origin x capacity by predicted sweep cost; pick the best.
+    """Score dims x origin x capacity by row-sweep slot count; pick the best.
 
     Bin-count choices interact non-obviously with the occupancy
-    distribution — measured on chip at 531k atoms, the "exact" 27-bin
-    geometry is 1.6x slower than 26 bins (estimate_grid_geometry's NOTE):
-    a slightly coarser grid can have a much tighter max occupancy.  And
-    at dense geometries the bins_per_cutoff=1 partition lands on caps
-    past the one-register window width (lane_w > 128), paying lane slack,
-    while a 2x finer partition (radius 2, small cap) often fits lanes
-    exactly — the round-3 headline's winning 524k geometry was exactly
-    the half-cutoff one.
+    distribution: a slightly coarser grid can have a much tighter max
+    occupancy, and the sweep cost scales with cap^2.
 
     Searches per-axis bin counts {floor, floor-1} at anisotropic
     bins-per-cutoff combinations — (z, y) at 1-2x jointly, x at 1-4x
     independently (plus any explicit ``dims_candidates`` in (Cz, Cy, Cx)
-    order).  Anisotropy matters because the axes price differently in
-    the window engine: finer z/y multiply the half-space offset count
-    ((2rz+1)(2ry+1)), while finer x only widens the per-cell window by
-    (2rx+1)*cap lanes — and cap shrinks with the bin volume, so
-    fine-binning x alone often drops the window from a padded 256 lanes
-    back to one dense 128-lane register (measured round 4: the 97k suite
-    config's isotropic partition lands on cap 48 / lane_w 256 with 44%
-    pad slack).  Candidates are pre-scored with a mean-occupancy cap
+    order).  Candidates are pre-scored with a mean-occupancy cap
     estimate, the best few get the real occupancy histogram
-    (:func:`choose_grid_origin`), and the final pick minimizes the
-    predicted cost of the engine the geometry would actually get:
-
-    - window-capable candidates (the Mosaic capability gate,
-      ``window_x_block(cx, lane_w) * lane_w <= 2048``) are scored by the
-      window engine's lane-slot count
-      ``ncells * n_off * cap * lane_w + block_cost * n_blocks``
-      (lane_w = (2rx+1)*cap rounded up to 128 — the slack is real cost);
-    - other candidates by the exact slot count of the symmetric XLA row
-      sweep, ``ncells * cap^2 * ((rx+1) + n_half * (2rx+1))``.
-
-    Window-capable candidates always win over xla-only ones (measured
-    4-6x on chip at the suite geometries).  Any candidate is a *valid*
-    partition (physics is geometry-independent); this only picks the
-    cheapest.
+    (:func:`choose_grid_origin`), and the final pick minimizes
+    :func:`row_sweep_slots` at the observed capacity.  Any candidate is a
+    *valid* partition (physics is geometry-independent); this only picks
+    the cheapest.
     """
-    from nvalchemiops_tpu.pallas.window_sweep import (
-        window_lane_width,
-        window_x_block,
-    )
-
     cell_np = np.asarray(jax.device_get(cell), dtype=np.float64).reshape(3, 3)
     inv_t = np.linalg.inv(cell_np).T
     face = 1.0 / np.linalg.norm(inv_t, axis=1)          # xyz order
@@ -1106,25 +885,13 @@ def choose_grid_geometry(positions, cell, pbc, cutoff: float,
             uniq.append(d)
 
     def geom_score(dims, cap):
-        """(invalid, not-window-capable, predicted cost) — lower wins."""
+        """(row-sweep slots or None if invalid, radius) — lower wins."""
         cpd_xyz = np.array([dims[2], dims[1], dims[0]], dtype=np.int64)
         radius = np.ceil(cutoff * cpd_xyz / face).astype(np.int64)
         if (radius[pbc_np] > cpd_xyz[pbc_np]).any():
             return None, None  # halo would wrap onto itself; invalid
-        rz, ry, rx = int(radius[2]), int(radius[1]), int(radius[0])
-        n_half = ((2 * rz + 1) * (2 * ry + 1) - 1) // 2
-        ncells = dims[0] * dims[1] * dims[2]
-        lane_w = window_lane_width(cap, rx)
-        bx = window_x_block(dims[2], lane_w)
-        capable = bx * lane_w <= 2048
-        if capable:
-            n_off = n_half + 1
-            n_blocks = dims[0] * dims[1] * (dims[2] // bx)
-            score = (ncells * n_off * cap * lane_w
-                     + _WINDOW_BLOCK_COST * n_blocks)
-        else:
-            score = ncells * cap * cap * ((rx + 1) + n_half * (2 * rx + 1))
-        return (not capable, score), (rz, ry, rx)
+        radius_zyx = (int(radius[2]), int(radius[1]), int(radius[0]))
+        return row_sweep_slots(dims, radius_zyx, cap), radius_zyx
 
     # pre-score every candidate with a mean-occupancy capacity estimate
     # (the real histogram costs device roundtrips; only the best few get
@@ -1145,7 +912,7 @@ def choose_grid_geometry(positions, cell, pbc, cutoff: float,
     # top-8: the pre-score's Poisson cap margin is pessimistic exactly
     # for the fine-binned (low-occupancy) candidates that win on real
     # crystals, so the histogram stage must be wide enough to catch them
-    best = None  # (window_capable, score) lexicographic: capable wins
+    best = None
     for _, dims in pre[:8]:
         origin_np, occ = choose_grid_origin(positions, cell, pbc, dims)
         cap = max(int(np.ceil((occ + 1) / 8)) * 8,
@@ -1175,12 +942,10 @@ def build_atom_grid_auto(positions, cell, pbc, cutoff: float,
     split the reference uses for its cell-list sizes (cell_list.py:639-724).
     Sweep cost scales ~cap^2, so the observed-occupancy capacity (and the
     origin search that lowers it for crystals) matters more than the extra
-    build.  ``optimize_geometry`` (default since round 4 — the out-of-the-
-    box path must land on the same geometries as the tuned benchmarks,
-    round-3 VERDICT weak #1/#8) searches nearby bin counts at 1-3x
-    bins-per-cutoff with :func:`choose_grid_geometry` (one cheap histogram
-    per candidate) and scores them with the on-chip window-engine cost
-    model; pass ``optimize_geometry=False`` to keep the single
+    build.  ``optimize_geometry`` (default) searches nearby bin counts at
+    1-4x bins-per-cutoff with :func:`choose_grid_geometry` (one cheap
+    histogram per candidate) and scores them by row-sweep slot count;
+    pass ``optimize_geometry=False`` to keep the single
     ``estimate_grid_geometry`` partition (``target_occupancy`` /
     ``bins_per_cutoff`` apply only to that path).
     """
@@ -1235,8 +1000,8 @@ def build_atom_grid_auto(positions, cell, pbc, cutoff: float,
 # symmetric sweep walks only the half-space of cell offsets, computes each
 # pair block once, and accumulates the j-side contribution into an extended
 # (halo) accumulator plane; halo regions then fold back onto their interior
-# source cells with pure slice adds — the TPU equivalent of the reference's
-# symmetric atomic insertion (neighbor_utils.py:70-147), with the 2x pair
+# source cells with pure slice adds — the atomic-free equivalent of the
+# reference's symmetric atomic insertion (neighbor_utils.py:70-147), with the 2x pair
 # saving and no atomics.
 
 
@@ -1377,13 +1142,13 @@ def grid_pair_reduce_sym(grid: AtomGrid, kernel, init, num_ext_acc: int,
 # Row-merged symmetric sweep (x-axis folded into the candidate window)
 # ---------------------------------------------------------------------------
 #
-# The per-cell sweep pairs [cap x cap] blocks, whose trailing dim (cap ~ 56)
-# wastes more than half of every 128-wide TPU vector register and tiles the
-# bilinear matmuls poorly.  The row sweep instead pairs each cell against a
+# The per-cell sweep pairs [cap x cap] blocks, whose small trailing dim
+# (cap ~ 40) tiles the bilinear matmuls poorly.  The row sweep instead
+# pairs each cell against a
 # whole x-window of (2Rx+1) cells at once: candidate planes are a concat of
 # x-shifted static slices with trailing dim (2Rx+1)*cap, so the (dz, dy)
 # offset loop shrinks from (2R+1)^3/2 offsets to (2Rz+1)(2Ry+1)/2 and every
-# pair block is lane-aligned.  Offsets are unrolled Python loops with fully
+# pair block is wide.  Offsets are unrolled Python loops with fully
 # static slice indices (no scan, no dynamic_slice) — XLA schedules them as
 # one straight-line program.
 

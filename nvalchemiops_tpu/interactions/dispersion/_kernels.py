@@ -1,12 +1,12 @@
 # SPDX-License-Identifier: Apache-2.0
-"""DFT-D3(BJ) compute core — TPU-layout (SoA / packed-shift) formulation.
+"""DFT-D3(BJ) compute core — SoA / packed-shift formulation.
 
 Same physics as dftd3.py's public module docstring; this file holds the
-chunked sweeps in a form shaped by two TPU layout rules:
+chunked sweeps in a form shaped by two layout rules:
 
-1. No array may carry a trailing dimension of 3 or (5, 5): TPU tiles the
-   last two dims to (8, 128), so `[N, C, 3]` or `[N, C, 5, 5]` gathers pad
-   HBM 42x (the naive formulation OOMs at 32k atoms).  Geometry is computed
+1. No array carries a thin trailing dimension of 3 or (5, 5): `[N, C, 3]`
+   or `[N, C, 5, 5]` gathers multiply the memory traffic of every
+   chunk.  Geometry is computed
    as separate x/y/z planes; shifts travel bit-packed (one int32 per pair);
    the C6/CN reference tables are flattened to 1-D and gathered per
    reference point as clean 2-D `[N, C]` loads.
@@ -390,8 +390,7 @@ def dftd3_list_kernel(
     the pair list is swept in 1-D chunks of per-pair math with
     ``segment_sum`` accumulation (``idx_i`` is CSR-ordered, so segments are
     sorted) — memory is O(num_pairs), never O(N x max_row) padded, which is
-    what makes this path worthwhile for dense pair lists at scale
-    (round-1 VERDICT missing #4).
+    what makes this path worthwhile for dense pair lists at scale.
 
     ``shifts_xyz`` is a tuple of three float [P] arrays (cartesian-ready
     unit-shift components), or None when non-periodic.

@@ -1,7 +1,7 @@
 # SPDX-License-Identifier: Apache-2.0
 """DFT-D3(BJ) dispersion: energies, analytical forces, virials, CNs.
 
-TPU-native counterpart of
+JAX counterpart of
 ``nvalchemiops/interactions/dispersion/dftd3.py`` (device helpers at
 dftd3.py:340-744, the 4-pass kernel pipeline at :752-1790, public API at
 :2468-2874).  Two-body only (no ATM C9), both neighbor formats, padding
@@ -24,8 +24,7 @@ Architecture: the reference's four per-atom Warp kernel launches become
 three ``lax.scan`` sweeps over neighbor-column chunks of dense [N, C]
 vectorized math (CN pass; energy/direct-force/dE_dCN pass; CN-chain force
 pass).  Chunking bounds the [N, C, 5, 5] C6-table gathers — the dominant
-memory traffic and the designated Pallas-kernel target (the whole
-c6/cn_ref tables fit in VMEM).
+memory traffic.
 """
 
 from __future__ import annotations

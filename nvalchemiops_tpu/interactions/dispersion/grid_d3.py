@@ -1,5 +1,5 @@
 # SPDX-License-Identifier: Apache-2.0
-"""DFT-D3(BJ) on the halo atom grid — the at-scale TPU path.
+"""DFT-D3(BJ) on the halo atom grid — the at-scale path.
 
 Same physics as ``dftd3.py`` (see its docstring for formulas and reference
 citations), evaluated over ``nvalchemiops_tpu.grid.AtomGrid`` candidate
@@ -11,10 +11,9 @@ transcendentals:
 - the Gaussian 5x5 interpolation factorizes exactly over the reference grid
   (``exp(k3(di^2+dj^2)) = e_i e_j``), so the per-pair quantities are
   bilinear forms; the *feature planes* ``R_j[z*mesh+q] = [z==z_j] e_j[q]``
-  are built ONCE per pass (flat, via constant one-hot matmuls — never
-  materializing a TPU-hostile ``[.., 17, 5]`` trailing pair) and windowed
-  by the sweep, leaving THREE batched MXU matmuls per pair block
-  (z, z_di, z_dj);
+  are built ONCE per pass (flat, never materializing a ``[.., 17, 5]``
+  trailing pair) and windowed by the sweep, leaving THREE batched
+  matmuls per pair block (z, z_di, z_dj);
 - the normalization ``w = e_i^T M01 e_j`` exploits that real D3 tables have
   a *separable* availability mask ``M01[zi,zj,p,q] = m[zi,p] m[zj,q]``
   (a reference compound either exists for an element or it doesn't), so
@@ -116,8 +115,8 @@ def compact_d3_elements(numbers, rcov, r4r2, c6ab, cn_ref):
     """Remap atomic numbers onto the dense set of elements present.
 
     The grid/dense engines turn the 5x5 C6 interpolation into bilinear
-    forms of width ``zm = (Zmax+1) * mesh`` (rule 4) — with full periodic
-    tables (Z <= 94, zm = 475) pass 2 pays ~5x more MXU work than a
+    forms of width ``zm = (Zmax+1) * mesh`` — with full periodic
+    tables (Z <= 94, zm = 475) pass 2 pays ~5x more matmul work than a
     typical composition needs.  This helper selects the elements actually
     present and relabels ``numbers`` with dense local indices (padding 0
     stays 0), shrinking every downstream feature width to
@@ -175,22 +174,22 @@ def make_d3_row_kernels(cutoff_sq, a1, a2, s6, s8, k1, k3, zm, upper,
     - ``"stack"`` (default): zacc and z_di share the candidate ``rf``
       window (the fattest read of the pass); stacking their two small
       lhs operands on the row axis reads it once.  Bit-identical to
-      split and measured faster (d3_stack_probe, 110k atoms: 24.67 ms
-      vs 25.17 split).
+      split.
     - ``"split"``: three einsums [.., cap, zm] x [.., W, zm] (M=cap).
     - ``"quad"``: one dot of the stacked operands ([l0; l1] on the cap
       axis x [rf | rfd] on the window axis) -> [.., 2 cap, 2 W]; the
-      three used quadrants are slices, the l1 x rfd quadrant is MXU
-      slack.  Bit-identical to split, but MEASURED A LOSS on the chip
-      (benchmarks/d3_quad_probe.py, 110k atoms: passes 1-2 23.9 ms vs
-      15.5 split; full 36.2 vs 23.7) — rule 9's third confirmation.
-      Kept for documentation; never the default.
+      three used quadrants are slices, the l1 x rfd quadrant is wasted
+      work.  Bit-identical to split; never the default.
 
     With ``compute_virial`` the direct/chain carries gain a trailing
     ``[3, 3]`` virial accumulator: ``-sum_pairs F_pair (x) d`` (the
     matrix path's ``-1/2 sum`` over both directions equals one full sum
     over the pair-once enumeration).
+
+    ``precision=None`` means ``HIGHEST`` (see :func:`grid_dftd3`).
     """
+    if precision is None:
+        precision = jax.lax.Precision.HIGHEST
 
     def _virial_acc(vir, blocks, ds):
         comps = [jnp.sum(fa * db) for fa in blocks for db in ds]
@@ -246,7 +245,7 @@ def make_d3_row_kernels(cutoff_sq, a1, a2, s6, s8, k1, k3, zm, upper,
             # lhs-only merge: zacc and z_di share the SAME rhs window
             # (cand["rf"], the fattest read of the pass) — stacking the
             # two small lhs operands on the row axis reads it once and
-            # costs no wasted quadrant (unlike "quad", rule 9).
+            # costs no wasted quadrant (unlike "quad").
             cap_i = l0.shape[-2]
             pet = (jnp.float32 if l0.dtype == jnp.bfloat16 else None)
             out = jnp.einsum("...if,...jf->...ij",
@@ -450,11 +449,11 @@ def _d3_atom_features(numbers_a, cn_a, cna_a, mask_a, c6p_a, k3, dtype,
       ``a = wd/w``, ``l1c = l1 - a l0`` and ``rfdc = rfd - a rf`` so the
       pair kernels compute ``z_di - c6 w_di = l1c_i . rf_j`` and
       ``z_dj - c6 w_dj = l0_i . rfdc_j`` DIRECTLY.  The naive form is a
-      catastrophic cancellation of two O(C6) bilinears — at the MXU's
-      default bf16 it measured 7e-2 relative error on dE/dCN (4e-2 on
-      end forces); the compensated form keeps bf16 error relative to the
-      small difference itself, and drops the w_di/w_dj VPU products from
-      the pair sweep (rule 13: the sweep is VPU-bound).
+      catastrophic cancellation of two O(C6) bilinears — with
+      reduced-precision matmul operands (bf16, TF32) it loses most of
+      dE/dCN; the compensated form keeps the rounding relative to the
+      small difference itself, and drops the w_di/w_dj products from
+      the pair sweep.
     """
     mesh = cna_a.shape[-1]
     zm = c6p_a.shape[-1]
@@ -475,25 +474,26 @@ def _d3_atom_features(numbers_a, cn_a, cna_a, mask_a, c6p_a, k3, dtype,
     # ed - a e or l1 - a l0: the post-contraction difference cancels two
     # O(C6 x CN) products whose exact cancellation XLA fusion breaks at
     # ulp scale.  In the saturated-CN regime (real tables: crystal CN
-    # 7-17 vs a [0, 1] reference grid, round 5) that ulp noise is the
-    # ENTIRE dE/dCN signal and amplified to 5e-3 f32 force error by the
+    # 7-17 vs a [0, 1] reference grid) that ulp noise is the ENTIRE
+    # dE/dCN signal and is amplified to ~5e-3 f32 force error by the
     # chain pass, while d - a_cn == 0.0 bit-exactly at the dominant
     # reference under any fusion (a_cn = wd/w reduces to d there), so
-    # the factored form is noise-free by construction (measured:
-    # f32-vs-f64 force error 4.7e-3 -> 1.6e-5 on the CsCl composite).
+    # the factored form is noise-free by construction (f32-vs-f64 force
+    # error 4.7e-3 -> 1.6e-5 on the CsCl composite, CPU).
     a_cn = jnp.where(w_a > 0.0, wd_a / jnp.where(w_a > 0.0, w_a, 1.0), 0.0)
     edc_a = e_a * (d_vec - a_cn[..., None])
 
     # left features: l0[(z,q)] = sum_p c6[p, (z,q)] e[p]; l1c with edc.
     # c6p_a is p-major [N, mesh, zm] so each p-slice is contiguous.
+    if precision is None:
+        precision = jax.lax.Precision.HIGHEST
     l0_a = jnp.einsum("npf,np->nf", c6p_a, e_a, precision=precision)  # [N, zm]
     l1c_a = jnp.einsum("npf,np->nf", c6p_a, edc_a, precision=precision)
 
     # layout (z, q): column m = z*mesh + q.  R[(z,q)] = [z == z_j] e_j[q]
-    # via repeat/tile — NOT one-hot expansion matmuls: on TPU a 0/1
-    # selection matmul still rounds the *values* to bf16 on the MXU
-    # (design rule 16; measured 0.9-3.5e-3 corruption of rf/rfd that
-    # surfaced as 3e-2 force error even at HIGHEST pass-2 precision).
+    # via repeat/tile — NOT one-hot expansion matmuls: a 0/1 selection
+    # matmul at reduced precision still rounds the *values* it selects
+    # (bf16 rounding of rf/rfd surfaced as 3e-2 force error).
     ziota = jax.lax.broadcasted_iota(INDEX_DTYPE, (1, zmax1), 1)
     ohz = (numbers_a[:, None] == ziota).astype(dtype)     # [N, Z+1]
     ohz_r = jnp.repeat(ohz, mesh, axis=-1)                # [N, zm]
@@ -517,7 +517,7 @@ def _d3_feature_planes(grid, z_plane, cn_a, cna_a, mask_a, c6p_a, k3, dtype,
     [.., cap, zm], rfdc_plane, w_a [N], wd_a [N])``; see
     :func:`_d3_atom_features` for the compensated l1c/rfdc features.
     ``numbers_a`` skips the plane regather when the caller already holds
-    the per-atom numbers (each 110k-atom gather costs ~1 ms, rule 7).
+    the per-atom numbers (saves one N-length gather).
     """
     from nvalchemiops_tpu.grid import _interior
 
@@ -530,7 +530,7 @@ def _d3_feature_planes(grid, z_plane, cn_a, cna_a, mask_a, c6p_a, k3, dtype,
     def feat_plane(vals):
         # slot -> atom row gather at scale (empty slots hit the zero fill
         # row), atom -> slot row scatter for small/slack-heavy systems —
-        # see grid.use_slot_gather for the measured crossover
+        # see grid.use_slot_gather for the crossover
         nslots = cz * cy * cx * cap
         if use_slot_gather(vals.shape[0], nslots):
             padded = jnp.concatenate(
@@ -573,7 +573,7 @@ def _grid_d3_impl(
     ``cn_a_override`` replaces pass 1 with precomputed per-atom CNs and
     ``skip_chain`` stops after pass 2 (returning the dE/dCN plane instead
     of chain forces) — together they let the hybrid engine run passes 1
-    and 3 on the voxel stencil (stencil.py) while keeping the MXU
+    and 3 on the voxel stencil (stencil.py) while keeping the
     interpolation pass here.
     """
     dtype = grid.ext_px.dtype
@@ -612,7 +612,7 @@ def _grid_d3_impl(
     else:
         cn_a = cn_a_override
         # the caller already holds per-atom CNs; scattering them to a
-        # plane only to gather them back out costs two N-ops (rule 7)
+        # plane only to gather them back out costs two N-ops
         cn_plane = None
 
     # ---- per-atom interpolation features (built ONCE, flat layouts) ------
@@ -627,10 +627,9 @@ def _grid_d3_impl(
             dims, cap, precision, numbers_a=numbers_a,
         )
     if feature_dtype is not None:
-        # einsum-operand-only storage cast (the MXU casts f32 operands to
-        # bf16 per pass anyway — storing them bf16 halves the windowed
-        # reads, the fattest HBM traffic of pass 2, at no extra rounding
-        # beyond the default single-pass bf16 matmul)
+        # einsum-operand-only storage cast: storing the features bf16
+        # halves the windowed reads, the fattest memory traffic of
+        # pass 2, at the cost of re-rounding the einsum operands
         lf_plane = lf_plane.astype(feature_dtype)
         rf_plane = rf_plane.astype(feature_dtype)
         rfdc_plane = rfdc_plane.astype(feature_dtype)
@@ -715,958 +714,6 @@ def _grid_d3_impl(
     return out + coul if with_coulomb else out
 
 
-# ---------------------------------------------------------------------------
-# Fused Pallas engine (pallas/row_sweep.py): same math, zero HBM pair blocks
-# ---------------------------------------------------------------------------
-
-
-@partial(
-    jax.jit,
-    static_argnames=(
-        "dims", "radius", "cap", "mesh", "zmax1",
-        "cutoff", "a1", "a2", "s6", "s8", "k1", "k3", "interpret",
-    ),
-)
-def _grid_d3_pallas_impl(
-    grid: AtomGrid,
-    z_plane, z_ext,
-    rcov_plane, rcov_ext,
-    r4r2_plane, r4r2_ext,
-    cna_a, mask_a, c6p_a,
-    cutoff: float, a1: float, a2: float, s6: float, s8: float,
-    k1: float, k3: float,
-    dims, radius, cap, mesh: int, zmax1: int, interpret: bool,
-):
-    from nvalchemiops_tpu.grid import _interior, fold_halo
-    from nvalchemiops_tpu.pallas.row_sweep import (
-        row_sweep, to_cand_layout, to_own_feature_layout, to_own_scalar_layout,
-    )
-
-    dtype = grid.ext_px.dtype
-    cz, cy, cx = dims
-    cutoff_sq = cutoff * cutoff
-    zm = zmax1 * mesh
-
-    vm_ext = (grid.ext_valid & (z_ext != 0)).astype(dtype)
-    _t = to_own_scalar_layout
-    own_scalars = {
-        "px": _t(_interior(grid, grid.ext_px)),
-        "py": _t(_interior(grid, grid.ext_py)),
-        "pz": _t(_interior(grid, grid.ext_pz)),
-        "vm": _t(_interior(grid, vm_ext)),
-        "rcov": _t(rcov_plane),
-    }
-    cand_scalars = {
-        "px": to_cand_layout(grid.ext_px),
-        "py": to_cand_layout(grid.ext_py),
-        "pz": to_cand_layout(grid.ext_pz),
-        "vm": to_cand_layout(vm_ext),
-        "rcov": to_cand_layout(rcov_ext),
-    }
-
-    def geom(oc, cw, pair_mask):
-        dx = cw["px"] - oc["px"]
-        dy = cw["py"] - oc["py"]
-        dz = cw["pz"] - oc["pz"]
-        d2 = dx * dx + dy * dy + dz * dz
-        ok = (oc["vm"] > 0) & (cw["vm"] > 0) & (d2 < cutoff_sq) & (d2 > 1e-20)
-        if pair_mask is not None:
-            ok &= pair_mask
-        r = jnp.sqrt(jnp.where(ok, d2, 1.0))
-        return ok, r, dx, dy, dz
-
-    # ---- pass 1: coordination numbers ------------------------------------
-    def cn_body(oc, cw, of, cf, pair_mask):
-        ok, r, *_ = geom(oc, cw, pair_mask)
-        rc = oc["rcov"] + cw["rcov"]
-        f = jnp.where(ok, 1.0 / (1.0 + jnp.exp(-k1 * (rc / r - 1.0))), 0.0)
-        return (jnp.sum(f, axis=1, keepdims=True),), (jnp.sum(f, axis=0, keepdims=True),)
-
-    (cn_own,), (cn_ext_acc,) = row_sweep(
-        dims, radius, cap, own_scalars, {}, cand_scalars, {},
-        cn_body, 1, 1, dtype=dtype, interpret=interpret,
-    )
-    cn_plane = cn_own + fold_halo(grid, cn_ext_acc)
-    cn_a = gather_from_grid(grid, cn_plane)
-
-    # ---- per-atom interpolation features (identical to the XLA engine) ---
-    d_vec = cn_a[..., None] - cna_a
-    arg = k3 * d_vec * d_vec
-    arg_m = jnp.where(mask_a > 0, arg, -jnp.inf)
-    arg_max = jnp.maximum(jnp.max(arg_m, axis=-1, keepdims=True), -1e30)
-    e_a = jnp.where(mask_a > 0, jnp.exp(arg - arg_max), 0.0)
-    ed_a = e_a * d_vec
-    w_a = jnp.sum(e_a, axis=-1)
-    wd_a = jnp.sum(ed_a, axis=-1)
-    l0_a = jnp.einsum("npf,np->nf", c6p_a, e_a)
-    l1_a = jnp.einsum("npf,np->nf", c6p_a, ed_a)
-
-    # repeat/tile, NOT one-hot matmuls: a 0/1 selection matmul rounds the
-    # values to bf16 on the MXU (rule 16; measured 3e-2 force corruption).
-    numbers_a = gather_from_grid(grid, z_plane)
-    ziota = jax.lax.broadcasted_iota(INDEX_DTYPE, (1, zmax1), 1)
-    ohz = (numbers_a[:, None] == ziota).astype(dtype)
-    ohz_r = jnp.repeat(ohz, mesh, axis=-1)
-    rf_a = ohz_r * jnp.tile(e_a, (1, zmax1))
-    rfd_a = ohz_r * jnp.tile(ed_a, (1, zmax1))
-    # compensated derivative features (see _d3_atom_features): the naive
-    # z_d - c6 w_d difference cancels catastrophically under bf16 MXU dots
-    a_cn = jnp.where(w_a > 0.0, wd_a / jnp.where(w_a > 0.0, w_a, 1.0), 0.0)
-    l1c_a = l1_a - a_cn[..., None] * l0_a
-    rfdc_a = rfd_a - a_cn[..., None] * rf_a
-
-    def feat_plane(vals):
-        # slot -> atom row gather at scale (empty slots hit the zero fill
-        # row), atom -> slot row scatter for small/slack-heavy systems —
-        # see grid.use_slot_gather for the measured crossover
-        nslots = cz * cy * cx * cap
-        if use_slot_gather(vals.shape[0], nslots):
-            padded = jnp.concatenate(
-                [vals, jnp.zeros((1, vals.shape[-1]), dtype)], axis=0)
-            aid = _interior(grid, grid.ext_aid).reshape(-1)
-            return padded[aid].reshape(cz, cy, cx, cap, vals.shape[-1])
-        buf = jnp.zeros((nslots + 1, vals.shape[-1]), dtype)
-        return buf.at[grid.flat_slot].set(vals)[:-1].reshape(
-            cz, cy, cx, cap, vals.shape[-1])
-
-    # interleaved own feature plane [cz, cy, cx, 2*cap, zm]: per cell the
-    # first cap slots hold l0 rows, the next cap hold l1c rows, so the
-    # kernel's per-x slice is a ready-made [zm, 2*cap] matmul lhs.
-    # Built by two slot->atom row gathers concatenated on the slot axis at
-    # scale (the dual scatter pays the random-destination lowering), or by
-    # the interleaved scatter for small/slack-heavy systems.
-    trash = cz * cy * cx * cap
-    if use_slot_gather(l0_a.shape[0], trash):
-        aid2 = _interior(grid, grid.ext_aid).reshape(cz, cy, cx, cap)
-        l0_p = jnp.concatenate([l0_a, jnp.zeros((1, zm), dtype)], axis=0)
-        l1c_p = jnp.concatenate([l1c_a, jnp.zeros((1, zm), dtype)], axis=0)
-        lf2_plane = jnp.concatenate([l0_p[aid2], l1c_p[aid2]], axis=3)
-    else:
-        is_trash = grid.flat_slot == trash
-        lin2 = grid.flat_slot // cap
-        rank2 = grid.flat_slot - lin2 * cap
-        s0 = jnp.where(is_trash, 2 * trash, lin2 * 2 * cap + rank2)
-        s1 = jnp.where(is_trash, 2 * trash, lin2 * 2 * cap + cap + rank2)
-        lf_buf = jnp.zeros((2 * trash + 1, zm), dtype)
-        lf_buf = lf_buf.at[s0].set(l0_a)
-        lf_buf = lf_buf.at[s1].set(l1c_a)
-        lf2_plane = lf_buf[:-1].reshape(cz, cy, cx, 2 * cap, zm)
-
-    rf_ext = _extend_like(grid, feat_plane(rf_a), 0.0)
-    rfdc_ext = _extend_like(grid, feat_plane(rfdc_a), 0.0)
-    w_plane = scatter_to_grid(grid, w_a)
-
-    own2 = dict(own_scalars, r4r2=_t(r4r2_plane), w=_t(w_plane))
-    cand2 = dict(
-        cand_scalars,
-        r4r2=to_cand_layout(r4r2_ext),
-        w=to_cand_layout(_extend_like(grid, w_plane, 0.0)),
-    )
-    own_feat = {"lf": to_own_feature_layout(lf2_plane)}
-    cand_feat = {"rf": to_cand_layout(rf_ext),
-                 "rfdc": to_cand_layout(rfdc_ext)}
-
-    # ---- pass 2: energy, direct forces, dE/dCN ---------------------------
-    def direct_body(oc, cw, of, cf, pair_mask):
-        ok, r, dx, dy, dz = geom(oc, cw, pair_mask)
-        w_win = cw["px"].shape[1]
-        # one bf16 MXU pass per x: [zm, 2*cap]^T x [zm, 2*W] -> all three
-        # bilinears as quadrants (the l1c x rfdc quadrant is unused slack);
-        # z_di/z_dj come out pre-compensated (l1c/rfdc features)
-        dn = (((0,), (0,)), ((), ()))
-        rhs = jnp.concatenate([cf["rf"], cf["rfdc"]], axis=1)
-        out = jax.lax.dot_general(of["lf"], rhs, dn,
-                                  preferred_element_type=jnp.float32)
-        zacc = out[:cap, :w_win]
-        z_di = out[cap:2 * cap, :w_win]
-        z_dj = out[:cap, w_win:2 * w_win]
-        w = oc["w"] * cw["w"]
-
-        good = w > 1e-12
-        w_safe = jnp.where(good, w, 1.0)
-        c6 = jnp.where(good, zacc / w_safe, 0.0)
-        dc6_dcni = jnp.where(good, 2.0 * k3 / w_safe * z_di, 0.0)
-        dc6_dcnj = jnp.where(good, 2.0 * k3 / w_safe * z_dj, 0.0)
-
-        pair_ok = ok & (c6 >= 1e-12)
-        rr = 3.0 * oc["r4r2"] * cw["r4r2"]
-        r0 = a1 * jnp.sqrt(rr) + a2
-        r2_ = r * r
-        r4 = r2_ * r2_
-        r6 = r4 * r2_
-        r8 = r4 * r4
-        r0_2 = r0 * r0
-        r0_6 = r0_2 * r0_2 * r0_2
-        r0_8 = r0_2 * r0_2 * r0_2 * r0_2
-        den6_inv = 1.0 / (r6 + r0_6)
-        den8_inv = 1.0 / (r8 + r0_8)
-        damp_sum = s6 * den6_inv + s8 * rr * den8_inv
-        e_ij = jnp.where(pair_ok, -c6 * damp_sum, 0.0)
-        dd6 = -6.0 * s6 * r4 * r * den6_inv * den6_inv
-        dd8 = -8.0 * s8 * rr * r6 * r * den8_inv * den8_inv
-        coef = jnp.where(pair_ok, -c6 * (dd6 + dd8) / r, 0.0)
-        cfx = coef * dx
-        cfy = coef * dy
-        cfz = coef * dz
-        dei = jnp.where(pair_ok, -damp_sum * dc6_dcni, 0.0)
-        dej = jnp.where(pair_ok, -damp_sum * dc6_dcnj, 0.0)
-        own_d = (
-            jnp.sum(e_ij, 1, keepdims=True),
-            jnp.sum(cfx, 1, keepdims=True),
-            jnp.sum(cfy, 1, keepdims=True),
-            jnp.sum(cfz, 1, keepdims=True),
-            jnp.sum(dei, 1, keepdims=True),
-        )
-        j_d = (
-            jnp.sum(-cfx, 0, keepdims=True),
-            jnp.sum(-cfy, 0, keepdims=True),
-            jnp.sum(-cfz, 0, keepdims=True),
-            jnp.sum(dej, 0, keepdims=True),
-        )
-        return own_d, j_d
-
-    (e_pl, fx_pl, fy_pl, fz_pl, decn_pl), j_accs = row_sweep(
-        dims, radius, cap, own2, own_feat, cand2, cand_feat,
-        direct_body, 5, 4, dtype=dtype, interpret=interpret,
-    )
-    fx_pl = fx_pl + fold_halo(grid, j_accs[0])
-    fy_pl = fy_pl + fold_halo(grid, j_accs[1])
-    fz_pl = fz_pl + fold_halo(grid, j_accs[2])
-    decn_pl = decn_pl + fold_halo(grid, j_accs[3])
-
-    # ---- pass 3: CN chain-rule forces ------------------------------------
-    own3 = dict(own_scalars, decn=_t(decn_pl))
-    cand3 = dict(cand_scalars, decn=to_cand_layout(_extend_like(grid, decn_pl, 0.0)))
-
-    def chain_body(oc, cw, of, cf, pair_mask):
-        ok, r, dx, dy, dz = geom(oc, cw, pair_mask)
-        rc = oc["rcov"] + cw["rcov"]
-        rrq = rc / r
-        f_cn = 1.0 / (1.0 + jnp.exp(-k1 * (rrq - 1.0)))
-        dcn_dr = -f_cn * (1.0 - f_cn) * k1 * rrq / r
-        coef = jnp.where(ok, (oc["decn"] + cw["decn"]) * dcn_dr / r, 0.0)
-        cfx = coef * dx
-        cfy = coef * dy
-        cfz = coef * dz
-        return (
-            (jnp.sum(cfx, 1, keepdims=True), jnp.sum(cfy, 1, keepdims=True),
-             jnp.sum(cfz, 1, keepdims=True)),
-            (jnp.sum(-cfx, 0, keepdims=True), jnp.sum(-cfy, 0, keepdims=True),
-             jnp.sum(-cfz, 0, keepdims=True)),
-        )
-
-    (fx3, fy3, fz3), j3 = row_sweep(
-        dims, radius, cap, own3, {}, cand3, {},
-        chain_body, 3, 3, dtype=dtype, interpret=interpret,
-    )
-    fx_t = fx_pl + fx3 + fold_halo(grid, j3[0])
-    fy_t = fy_pl + fy3 + fold_halo(grid, j3[1])
-    fz_t = fz_pl + fz3 + fold_halo(grid, j3[2])
-    return e_pl, fx_t, fy_t, fz_t, cn_plane
-
-
-@partial(
-    jax.jit,
-    static_argnames=(
-        "dims", "radius", "cap", "mesh", "zmax1",
-        "cutoff", "a1", "a2", "s6", "s8", "k1", "k3", "interpret",
-        "with_coulomb", "calpha", "ccutoff", "block_G", "skip_chain",
-    ),
-)
-def _grid_d3_block_impl(
-    grid: AtomGrid,
-    z_plane, z_ext,
-    rcov_plane, rcov_ext,
-    r4r2_plane, r4r2_ext,
-    cna_a, mask_a, c6p_a,
-    cutoff: float, a1: float, a2: float, s6: float, s8: float,
-    k1: float, k3: float,
-    dims, radius, cap, mesh: int, zmax1: int, interpret: bool,
-    q_plane=None, q_ext=None, with_coulomb: bool = False,
-    calpha: float = 0.0, ccutoff: float = 0.0,
-    block_G: int | None = None, numbers_a=None,
-    skip_chain: bool = False,
-):
-    """D3 on the super-chunk Pallas engine (pallas/block_sweep.py).
-
-    Same math as ``_grid_d3_impl``; the pass-2 bilinear contractions run on
-    the MXU inside the fused kernel, so the [.., cap, W] interpolation pair
-    blocks never reach HBM.  D3 parameters are static (one recompile per
-    parameter set).
-
-    With ``with_coulomb`` the (erfc-damped) real-space Coulomb pair pass
-    rides pass 2's geometry (one fused sweep instead of two — the MLIP
-    real-space workload in a single pass); extra returns
-    ``(e_c, fcx, fcy, fcz)`` planes.
-    """
-    from nvalchemiops_tpu.grid import _interior, fold_halo
-    from nvalchemiops_tpu.pallas.block_sweep import (
-        block_sweep, choose_super_chunk, pack_columns,
-    )
-
-    dtype = grid.ext_px.dtype
-    cz, cy, cx = dims
-    rz, ry, rx = radius
-    ez, ey, ex = cz + 2 * rz, cy + 2 * ry, cx + 2 * rx
-    lext = ex * cap
-    cutoff_sq = cutoff * cutoff
-    zm = zmax1 * mesh
-
-    # Displacement-based validity: empty slots are parked far away by the
-    # grid build; padding atoms (numbers == 0) get an extra unique parking
-    # displacement here, so the pair bodies need no validity compares at
-    # all (each saved [M, W] op costs ~0.5 ms at 110k atoms).
-    from nvalchemiops_tpu.grid import DISPLACE, DISPLACE_SPACING
-    ext_iota = jnp.arange(ez * ey * lext, dtype=dtype).reshape(
-        ez, ey, ex, cap)
-    ext_px_d = grid.ext_px + jnp.where(
-        z_ext == 0, DISPLACE + ext_iota * DISPLACE_SPACING, 0.0)
-
-    def rows(p):
-        return p.reshape(ez, ey, lext)
-
-    geom_rows = {
-        "px": rows(ext_px_d), "py": rows(grid.ext_py),
-        "pz": rows(grid.ext_pz),
-    }
-
-    def geom(s, crow, pair_ok):
-        dx = crow["px"] - s[:, 0:1]
-        dy = crow["py"] - s[:, 1:2]
-        dz = crow["pz"] - s[:, 2:3]
-        d2 = dx * dx + dy * dy + dz * dz
-        base = pair_ok & (d2 > 1e-20)
-        ok = base & (d2 < cutoff_sq)
-        r2m = jnp.where(ok, d2, 1.0)
-        inv_r = jax.lax.rsqrt(r2m)
-        return ok, inv_r, r2m, dx, dy, dz, base, d2
-
-    geom_own = (
-        _interior(grid, ext_px_d), _interior(grid, grid.ext_py),
-        _interior(grid, grid.ext_pz),
-    )
-
-    # ---- pass 1: coordination numbers ------------------------------------
-    def cn_body(own, crow, ccol, pair_ok):
-        s = own["s"]
-        ok, inv_r, *_rest = geom(s, crow, pair_ok)
-        rc = s[:, 3:4] + crow["rcov"]
-        f = jnp.where(ok, 1.0 / (1.0 + jnp.exp(-k1 * (rc * inv_r - 1.0))), 0.0)
-        return (f,), (f,)
-
-    own1 = {"s": pack_columns(*geom_own, rcov_plane)}
-    crow1 = dict(geom_rows, rcov=rows(rcov_ext))
-    (cn_own,), (cn_ext_acc,) = block_sweep(
-        dims, radius, cap, own1, crow1, {}, cn_body, 1, 1,
-        G=block_G or choose_super_chunk(cx, cap, rx, live_blocks=6),
-        dtype=dtype, interpret=interpret,
-    )
-    cn_plane = cn_own + fold_halo(grid, cn_ext_acc)
-    cn_a = gather_from_grid(grid, cn_plane)
-
-    # ---- per-atom interpolation features (same as the XLA engine) --------
-    d_vec = cn_a[..., None] - cna_a
-    arg = k3 * d_vec * d_vec
-    arg_m = jnp.where(mask_a > 0, arg, -jnp.inf)
-    arg_max = jnp.maximum(jnp.max(arg_m, axis=-1, keepdims=True), -1e30)
-    e_a = jnp.where(mask_a > 0, jnp.exp(arg - arg_max), 0.0)
-    ed_a = e_a * d_vec
-    w_a = jnp.sum(e_a, axis=-1)
-    wd_a = jnp.sum(ed_a, axis=-1)
-    l0_a = jnp.einsum("npf,np->nf", c6p_a, e_a)
-    l1_a = jnp.einsum("npf,np->nf", c6p_a, ed_a)
-
-    # repeat/tile, NOT one-hot matmuls (rule 16 — see _d3_atom_features)
-    if numbers_a is None:
-        numbers_a = gather_from_grid(grid, z_plane)
-    ziota = jax.lax.broadcasted_iota(INDEX_DTYPE, (1, zmax1), 1)
-    ohz = (numbers_a[:, None] == ziota).astype(dtype)
-    ohz_r = jnp.repeat(ohz, mesh, axis=-1)
-    rf_a = ohz_r * jnp.tile(e_a, (1, zmax1))
-    rfd_a = ohz_r * jnp.tile(ed_a, (1, zmax1))
-    # compensated derivative features (see _d3_atom_features)
-    a_cn = jnp.where(w_a > 0.0, wd_a / jnp.where(w_a > 0.0, w_a, 1.0), 0.0)
-    l1c_a = l1_a - a_cn[..., None] * l0_a
-    rfdc_a = rfd_a - a_cn[..., None] * rf_a
-
-    def feat_plane(vals):
-        # slot -> atom row gather at scale (empty slots hit the zero fill
-        # row), atom -> slot row scatter for small/slack-heavy systems —
-        # see grid.use_slot_gather for the measured crossover
-        nslots = cz * cy * cx * cap
-        if use_slot_gather(vals.shape[0], nslots):
-            padded = jnp.concatenate(
-                [vals, jnp.zeros((1, vals.shape[-1]), dtype)], axis=0)
-            aid = _interior(grid, grid.ext_aid).reshape(-1)
-            return padded[aid].reshape(cz, cy, cx, cap, vals.shape[-1])
-        buf = jnp.zeros((nslots + 1, vals.shape[-1]), dtype)
-        return buf.at[grid.flat_slot].set(vals)[:-1].reshape(
-            cz, cy, cx, cap, vals.shape[-1])
-
-    lf_cols = feat_plane(jnp.concatenate([l0_a, l1c_a], axis=-1)).reshape(
-        cz, cy, cx * cap, 2 * zm)
-    rf_ext5 = _extend_like(grid, feat_plane(rf_a), 0.0)
-    rfdc_ext5 = _extend_like(grid, feat_plane(rfdc_a), 0.0)
-    w_plane = scatter_to_grid(grid, w_a)
-    w_ext = _extend_like(grid, w_plane, 0.0)
-
-    # ---- pass 2: energy, direct forces, dE/dCN ---------------------------
-    def direct_body(own, crow, ccol, pair_ok):
-        s = own["s"]
-        ok, inv_r, r2_, dx, dy, dz, base, d2 = geom(s, crow, pair_ok)
-        lf = own["lf"]
-        # [M, K] x [K, W] against the pre-transposed candidate features —
-        # no per-block rhs transpose in Mosaic.  Default (single-bf16-pass)
-        # dots; z_di/z_dj come out pre-compensated (l1c/rfdc features), so
-        # the dc6/dCN chain carries no catastrophic cancellation at bf16.
-        dn = (((1,), (0,)), ((), ()))
-        zacc = jax.lax.dot_general(lf[:, :zm], ccol["rfT"], dn,
-                                   preferred_element_type=dtype)
-        z_di = jax.lax.dot_general(lf[:, zm:], ccol["rfT"], dn,
-                                   preferred_element_type=dtype)
-        z_dj = jax.lax.dot_general(lf[:, :zm], ccol["rfdcT"], dn,
-                                   preferred_element_type=dtype)
-        w = s[:, 4:5] * crow["w"]
-
-        good = w > 1e-12
-        w_inv = 1.0 / jnp.where(good, w, 1.0)
-        c6 = jnp.where(good, zacc * w_inv, 0.0)
-
-        pair_good = ok & (c6 >= 1e-12)
-        # si = (3 r4r2)^(1/2)-style per-atom factor: rr = 3 r4r2_i r4r2_j
-        # and r0 = a1 sqrt(rr) + a2 with no per-slot sqrt
-        t = s[:, 3:4] * crow["si"]
-        rr = t * t
-        r0 = a1 * t + a2
-        r4 = r2_ * r2_
-        r6 = r4 * r2_
-        r8 = r4 * r4
-        r0_2 = r0 * r0
-        r0_6 = r0_2 * r0_2 * r0_2
-        r0_8 = r0_6 * r0_2
-        den6 = r6 + r0_6
-        den8 = r8 + r0_8
-        rec = 1.0 / (den6 * den8)          # one divide for both dampings
-        den6_inv = rec * den8
-        den8_inv = rec * den6
-        damp_sum = s6 * den6_inv + s8 * rr * den8_inv
-
-        e_ij = jnp.where(pair_good, -c6 * damp_sum, 0.0)
-        dd6 = -6.0 * s6 * r4 * den6_inv * den6_inv
-        dd8 = -8.0 * s8 * rr * r6 * den8_inv * den8_inv
-        coef = jnp.where(pair_good, -c6 * (dd6 + dd8), 0.0)
-        cfx = coef * dx
-        cfy = coef * dy
-        cfz = coef * dz
-        # dei/dej = -damp * (2 k3 / w) * z_d (compensated): share prefactor
-        m = jnp.where(pair_good, (-2.0 * k3) * damp_sum * w_inv, 0.0)
-        dei = m * z_di
-        dej = m * z_dj
-        own_blocks = (e_ij, cfx, cfy, cfz, dei)
-        j_blocks = (("neg", cfx), ("neg", cfy), ("neg", cfz), dej)
-        if with_coulomb:
-            from nvalchemiops_tpu.mathops.math import erfc_approx
-            ok_c = base & (d2 < ccutoff * ccutoff)
-            inv_rc = jax.lax.rsqrt(jnp.where(ok_c, d2, 1.0))
-            qq = s[:, 5:6] * crow["q"]
-            if calpha > 0:
-                rc_ = jnp.where(ok_c, d2, 1.0) * inv_rc
-                ar = calpha * rc_
-                erfc_ar = erfc_approx(ar)
-                phi = erfc_ar * inv_rc
-                mag = (erfc_ar * inv_rc
-                       + 1.1283791670955126 * calpha * jnp.exp(-ar * ar)
-                       ) * inv_rc * inv_rc
-            else:
-                phi = inv_rc
-                mag = inv_rc * inv_rc * inv_rc
-            e_c = jnp.where(ok_c, 0.5 * qq * phi, 0.0)
-            ncoef_c = jnp.where(ok_c, -(qq * mag), 0.0)
-            mgx = ncoef_c * dx   # own-side force contribution (negated)
-            mgy = ncoef_c * dy
-            mgz = ncoef_c * dz
-            own_blocks = own_blocks + (e_c, mgx, mgy, mgz)
-            j_blocks = j_blocks + (e_c, ("neg", mgx), ("neg", mgy),
-                                   ("neg", mgz))
-        return own_blocks, j_blocks
-
-    # si = sqrt(sqrt(3) * r4r2): si_i * si_j squares to rr = 3 r4r2_i r4r2_j,
-    # removing the per-slot sqrt from the BJ radius
-    si_plane = jnp.sqrt(r4r2_plane * 1.7320508075688772)
-    si_ext = jnp.sqrt(r4r2_ext * 1.7320508075688772)
-    own2_cols = list(geom_own) + [si_plane, w_plane]
-    if with_coulomb:
-        own2_cols.append(q_plane)
-    own2 = {
-        "s": pack_columns(*own2_cols),
-        "lf": lf_cols,
-    }
-    crow2 = dict(
-        geom_rows,
-        si=rows(si_ext), w=rows(w_ext),
-    )
-    if with_coulomb:
-        crow2["q"] = rows(q_ext)
-    ccolt2 = {
-        "rfT": jnp.swapaxes(rf_ext5.reshape(ez, ey, lext, zm), 2, 3),
-        "rfdcT": jnp.swapaxes(rfdc_ext5.reshape(ez, ey, lext, zm), 2, 3),
-    }
-    n_own2 = 9 if with_coulomb else 5
-    n_j2 = 8 if with_coulomb else 4
-    acc2, j2 = block_sweep(
-        dims, radius, cap, own2, crow2, {}, direct_body, n_own2, n_j2,
-        G=block_G or choose_super_chunk(cx, cap, rx,
-                                        vmem_budget_bytes=10 << 20,
-                                        live_blocks=16 if with_coulomb else 12),
-        dtype=dtype, interpret=interpret, cand_colsT=ccolt2,
-    )
-    e_pl, fx_pl, fy_pl, fz_pl, decn_pl = acc2[:5]
-    fx_pl = fx_pl + fold_halo(grid, j2[0])
-    fy_pl = fy_pl + fold_halo(grid, j2[1])
-    fz_pl = fz_pl + fold_halo(grid, j2[2])
-    decn_pl = decn_pl + fold_halo(grid, j2[3])
-    if with_coulomb:
-        ec_pl = acc2[5] + fold_halo(grid, j2[4])
-        fcx_pl = acc2[6] + fold_halo(grid, j2[5])
-        fcy_pl = acc2[7] + fold_halo(grid, j2[6])
-        fcz_pl = acc2[8] + fold_halo(grid, j2[7])
-
-    if skip_chain:
-        # debug/hybrid hook: passes 1-2 only, exposing the dE/dCN plane
-        return e_pl, fx_pl, fy_pl, fz_pl, cn_plane, decn_pl
-
-    # ---- pass 3: CN chain-rule forces ------------------------------------
-    def chain_body(own, crow, ccol, pair_ok):
-        s = own["s"]
-        ok, inv_r, _r2, dx, dy, dz, *_rest = geom(s, crow, pair_ok)
-        rc = s[:, 3:4] + crow["rcov"]
-        rrq = rc * inv_r
-        f_cn = 1.0 / (1.0 + jnp.exp(-k1 * (rrq - 1.0)))
-        dcn_dr_r = -f_cn * (1.0 - f_cn) * k1 * rrq * inv_r * inv_r
-        de_chain = (s[:, 4:5] + crow["decn"]) * dcn_dr_r
-        coef = jnp.where(ok, de_chain, 0.0)
-        cfx = coef * dx
-        cfy = coef * dy
-        cfz = coef * dz
-        return (cfx, cfy, cfz), (("neg", cfx), ("neg", cfy), ("neg", cfz))
-
-    own3 = {"s": pack_columns(*geom_own, rcov_plane, decn_pl)}
-    crow3 = dict(geom_rows, rcov=rows(rcov_ext),
-                 decn=rows(_extend_like(grid, decn_pl, 0.0)))
-    (fx3, fy3, fz3), j3 = block_sweep(
-        dims, radius, cap, own3, crow3, {}, chain_body, 3, 3,
-        G=block_G or choose_super_chunk(cx, cap, rx, live_blocks=8),
-        dtype=dtype, interpret=interpret,
-    )
-    fx_t = fx_pl + fx3 + fold_halo(grid, j3[0])
-    fy_t = fy_pl + fy3 + fold_halo(grid, j3[1])
-    fz_t = fz_pl + fz3 + fold_halo(grid, j3[2])
-    if with_coulomb:
-        return (e_pl, fx_t, fy_t, fz_t, cn_plane,
-                ec_pl, fcx_pl, fcy_pl, fcz_pl)
-    return e_pl, fx_t, fy_t, fz_t, cn_plane
-
-
-def _grid_d3_window_impl(
-    grid: AtomGrid,
-    z_plane, z_ext,
-    rcov_plane, rcov_ext,
-    r4r2_plane, r4r2_ext,
-    cna_elem, mask_elem, c6p_elem,
-    cutoff: float, a1: float, a2: float, s6: float, s8: float,
-    k1: float, k3: float,
-    dims, radius, cap, mesh: int, zmax1: int, interpret: bool,
-    q_plane=None, q_ext=None, with_coulomb: bool = False,
-    calpha: float = 0.0, ccutoff: float = 0.0,
-    feature_dtype=None, skip_chain: bool = False,
-    combine_forces: bool = False,
-    compute_virial: bool = False, cell=None,
-):
-    """D3 on the pre-windowed per-cell Pallas engine (pallas/window_sweep.py).
-
-    Same math as ``_grid_d3_impl``; candidate planes are pre-windowed in
-    XLA to lane-aligned per-cell slices, so each pass runs minimal
-    (2Rx+1)*cap candidate slots per atom with zero merge slack (the block
-    engine's (G+2Rx)/G ~ 1.8x) and one Mosaic block per (z, y) row.
-    Measured on chip at 109,744 atoms: CN pass 1.56 ms vs 2.81 (block) /
-    ~7 (xla row sweep).  D3 parameters are static (one recompile per
-    parameter set).  ``feature_dtype`` stores the pass-2 MXU operand
-    windows (lf/rf/rfdc) in that dtype (bf16 halves the fattest windowed
-    reads; the MXU casts f32 operands per pass anyway).
-
-    With ``with_coulomb`` the (erfc-damped) real-space Coulomb pair pass
-    rides pass 2's candidate windows; extra returns
-    ``(e_c, fcx, fcy, fcz)`` planes.  ``combine_forces`` folds the
-    Coulomb force pair terms directly into the D3 force accumulators
-    inside the kernel (6 own + 5 j-side pass-2 outputs instead of
-    9 + 8) — the accumulator set that exceeded the 16 MB scoped-VMEM
-    limit at 16^3-cell/cap-40 geometries separate; returns
-    ``(e_d3, fx, fy, fz, cn, e_c)`` with the force planes carrying
-    D3 + Coulomb combined.
-
-    With ``compute_virial`` (requires ``cell``; not combinable with
-    ``with_coulomb``/``skip_chain``) an extra trailing ``[3, 3]`` virial
-    is returned, computed WITHOUT touching the Mosaic kernels via the
-    plane identity
-
-        ``V[a, b] = -sum_pairs cf_a d_b
-                  = sum_int F_a r^w_b + sum_ext jF_raw_a S_b``
-
-    where ``d = (r_j^w + S) - r_i^w`` (ghost shifts pre-applied in the
-    halo planes), ``F`` is the total per-slot force accumulator the
-    engine already produces, and the RAW extended j-side accumulators
-    attribute each pair's ``-cf`` to the ghost cell whose cartesian
-    shift ``S`` is known from ``ext_shift_code`` — so the two extra
-    contractions are cheap plane reductions outside the kernels.
-    (Pass-3 chain forces are central per pair like pass 2's, so the same
-    identity covers both passes; pass 1 produces no forces.)
-    """
-    from nvalchemiops_tpu.grid import _interior, fold_halo
-    from nvalchemiops_tpu.pallas.block_sweep import pack_columns
-    from nvalchemiops_tpu.pallas.window_sweep import (
-        WINDOW_PARK,
-        window_colsT,
-        window_lane_width,
-        window_rows,
-        window_sweep,
-    )
-
-    dtype = grid.ext_px.dtype
-    cz, cy, cx = dims
-    rz, ry, rx = radius
-    ez, ey, ex = cz + 2 * rz, cy + 2 * ry, cx + 2 * rx
-    lane_w = window_lane_width(cap, rx)
-    cutoff_sq = cutoff * cutoff
-    zm = zmax1 * mesh
-    fdt = feature_dtype or dtype
-
-    # padding atoms (numbers == 0) get a unique parking displacement, like
-    # the grid build's empty slots — no validity compares in any pass body
-    from nvalchemiops_tpu.grid import DISPLACE, DISPLACE_SPACING
-    ext_iota = jnp.arange(ez * ey * ex * cap, dtype=dtype).reshape(
-        ez, ey, ex, cap)
-    ext_px_d = grid.ext_px + jnp.where(
-        z_ext == 0, DISPLACE + ext_iota * DISPLACE_SPACING, 0.0)
-
-    def wrow(plane_ext, park=0.0):
-        return window_rows(plane_ext, rx, cap, lane_w, park=park)
-
-    pxw = wrow(ext_px_d, park=WINDOW_PARK)
-    pyw = wrow(grid.ext_py)
-    pzw = wrow(grid.ext_pz)
-    rcovw = wrow(rcov_ext)
-    geom_own = (
-        _interior(grid, ext_px_d), _interior(grid, grid.ext_py),
-        _interior(grid, grid.ext_pz),
-    )
-
-    def geom(s, crow, cut_sq):
-        # [n_off, 1, L] - [1, cap, 1] -> [n_off, cap, L] pair blocks
-        dx = crow["px"] - s[:, 0:1][None]
-        dy = crow["py"] - s[:, 1:2][None]
-        dz = crow["pz"] - s[:, 2:3][None]
-        d2 = dx * dx + dy * dy + dz * dz
-        base = d2 > 1e-20
-        ok = base & (d2 < cut_sq)
-        r2m = jnp.where(ok, d2, 1.0)
-        inv_r = jax.lax.rsqrt(r2m)
-        return ok, inv_r, r2m, dx, dy, dz, base, d2
-
-    def apply_home(ok, home):
-        return jnp.concatenate(
-            [ok[0:1] & home[None], ok[1:]], axis=0)
-
-    # ---- pass 1: coordination numbers ------------------------------------
-    def cn_body(own, crow, ccolt, home):
-        s = own["s"]
-        ok, inv_r, *_rest = geom(s, crow, cutoff_sq)
-        ok = apply_home(ok, home)
-        rc = s[:, 3:4][None] + crow["rcov"]
-        f = jnp.where(ok, 1.0 / (1.0 + jnp.exp(-k1 * (rc * inv_r - 1.0))),
-                      0.0)
-        return (f,), (f,)
-
-    own1 = {"s": pack_columns(*geom_own, rcov_plane)}
-    (cn_own,), (cn_ext_acc,) = window_sweep(
-        dims, radius, cap, own1,
-        {"px": pxw, "py": pyw, "pz": pzw, "rcov": rcovw}, {},
-        cn_body, 1, 1, lane_w=lane_w, dtype=dtype, interpret=interpret,
-    )
-    cn_plane = cn_own + fold_halo(grid, cn_ext_acc)
-
-    # ---- interpolation features, computed IN PLANE SPACE -----------------
-    #
-    # Same math as _d3_atom_features, evaluated directly on the interior
-    # planes from cn_plane + z_plane and the tiny element tables — zero
-    # atom-major round trips (each 110k-atom gather/scatter costs ~1 ms,
-    # rule 7).  The candidate-side rf/rfdc features are NOT materialized
-    # as [.., zm] planes either — the kernel rebuilds them per window from
-    # the [.., mesh] e/edc windows and the element-id row, so the windowed
-    # feature traffic is (2 mesh + 1) columns regardless of element count.
-    # per-slot table rows via VPU where-selects, NOT one-hot matmuls: on
-    # TPU a 0/1 selection matmul still rounds the selected VALUES to bf16
-    # on the MXU (design rule 16 — measured 2e-3 energy corruption here)
-    ohz = (z_plane[..., None]
-           == jnp.arange(zmax1, dtype=z_plane.dtype)).astype(dtype)
-    cna_t = cna_elem.astype(dtype)
-    maskel_t = mask_elem.astype(dtype)
-    cna_pl = jnp.zeros(z_plane.shape + (mesh,), dtype)
-    mask_pl = jnp.zeros_like(cna_pl)
-    for z in range(zmax1):
-        sel = ohz[..., z:z + 1]
-        cna_pl = cna_pl + sel * cna_t[z]
-        mask_pl = mask_pl + sel * maskel_t[z]
-    d_pl = cn_plane[..., None] - cna_pl                 # [.., cap, mesh]
-    arg = k3 * d_pl * d_pl
-    arg_m = jnp.where(mask_pl > 0, arg, -jnp.inf)
-    arg_max = jnp.maximum(jnp.max(arg_m, axis=-1, keepdims=True), -1e30)
-    e_pl = jnp.where(mask_pl > 0, jnp.exp(arg - arg_max), 0.0)
-    ed_pl = e_pl * d_pl
-    w_plane = jnp.sum(e_pl, axis=-1)
-    wd_plane = jnp.sum(ed_pl, axis=-1)
-    a_cn = jnp.where(w_plane > 0.0,
-                     wd_plane / jnp.where(w_plane > 0.0, w_plane, 1.0), 0.0)
-    # factored compensation e (d - a): see _d3_atom_features — the
-    # post-contraction l1 - a l0 form leaks fusion-order ulp noise that
-    # IS the whole dE/dCN signal in the saturated-CN regime
-    edc_pl = e_pl * (d_pl - a_cn[..., None])
-    # HIGHEST: these left features feed the compensated dC6/dCN bilinears;
-    # a default single-bf16-pass contraction here measured 6e-2 force /
-    # 2e-3 energy corruption on chip (the mesh-axis dot carries real f32
-    # values, unlike the pair-sweep dots whose operands are bf16-safe)
-    #
-    # z-structured broadcast + ONE [slots, zm] @ [zm, zm] matmul instead
-    # of a zmax1-pass select loop: the loop's O(zmax^2) HBM traffic cost
-    # +26 ms from zmax 16 -> 32 at 97k atoms (r4_zmax_probe round 4);
-    # f[s, z*mesh + p] = [z == z_s] * e[s, p] makes l0 = f @ C exact with
-    # C[(z, p), q] = c6p[z, p, q].
-    hi = jax.lax.Precision.HIGHEST
-    c6p_t = c6p_elem.astype(dtype)                      # [Z, mesh, zm]
-    zrow_pl = jnp.arange(zm, dtype=z_plane.dtype) // mesh
-    fmask = z_plane[..., None] == zrow_pl               # [.., cap, zm]
-    e_tiled = jnp.tile(e_pl, (1,) * (e_pl.ndim - 1) + (zmax1,))
-    edc_tiled = jnp.tile(edc_pl, (1,) * (edc_pl.ndim - 1) + (zmax1,))
-    f_pl = jnp.where(fmask, e_tiled, 0.0)
-    fdc_pl = jnp.where(fmask, edc_tiled, 0.0)
-    c2 = c6p_t.reshape(zm, zm)
-    l0_pl = jnp.einsum("...f,fz->...z", f_pl, c2, precision=hi)
-    l1c_pl = jnp.einsum("...f,fz->...z", fdc_pl, c2, precision=hi)
-
-    lf_cols = jnp.concatenate([l0_pl, l1c_pl], axis=-1).astype(fdt).reshape(
-        cz, cy, cx * cap, 2 * zm)
-    eT_w = window_colsT(_extend_like(grid, e_pl.astype(fdt), 0.0),
-                        rx, cap, lane_w)
-    edcT_w = window_colsT(_extend_like(grid, edc_pl.astype(fdt), 0.0),
-                          rx, cap, lane_w)
-    zf_w = wrow(z_ext.astype(dtype), park=-1.0)
-    w_ext = _extend_like(grid, w_plane, 0.0)
-
-    # ---- pass 2: energy, direct forces, dE/dCN ---------------------------
-    def direct_body(own, crow, ccolt, home):
-        s = own["s"]
-        ok, inv_r, r2_, dx, dy, dz, base, d2 = geom(s, crow, cutoff_sq)
-        ok = apply_home(ok, home)
-        lf = own["lf"]
-        l0 = lf[:, :zm]
-        l1c = lf[:, zm:]
-        dn = (((1,), (0,)), ((), ()))
-        # candidate rf/rfdc rebuilt per window from the [mesh, L] e/edc
-        # windows + the element-id row: rf[(z', q), l] = [z_l == z'] e_l[q]
-        # — a sublane tile + compare + select instead of a zm-wide
-        # windowed read (the fattest HBM traffic of the pass)
-        lane_n = crow["px"].shape[-1]
-        zrow = (jax.lax.broadcasted_iota(jnp.int32, (zm, lane_n), 0)
-                // mesh).astype(dtype)
-        n_off = len(ccolt["e"])
-        zaccs, z_dis, z_djs = [], [], []
-        for o in range(n_off):
-            zmask = crow["zf"][o] == zrow          # [zm, L]
-            rfT = jnp.where(zmask, jnp.concatenate(
-                [ccolt["e"][o]] * zmax1, axis=0), 0.0).astype(lf.dtype)
-            rfdcT = jnp.where(zmask, jnp.concatenate(
-                [ccolt["edc"][o]] * zmax1, axis=0), 0.0).astype(lf.dtype)
-            zaccs.append(jax.lax.dot_general(
-                l0, rfT, dn, preferred_element_type=dtype))
-            z_dis.append(jax.lax.dot_general(
-                l1c, rfT, dn, preferred_element_type=dtype))
-            z_djs.append(jax.lax.dot_general(
-                l0, rfdcT, dn, preferred_element_type=dtype))
-        zacc = jnp.stack(zaccs, axis=0)
-        z_di = jnp.stack(z_dis, axis=0)
-        z_dj = jnp.stack(z_djs, axis=0)
-        w = s[:, 4:5][None] * crow["w"]
-
-        good = w > 1e-12
-        w_inv = 1.0 / jnp.where(good, w, 1.0)
-        # one folded mask (ok & good) on c6: every c6-proportional output
-        # (e_ij, coef) inherits the zero, and the masked r2_ = 1 keeps the
-        # damping chain finite at excluded slots, so only m (not
-        # c6-proportional) needs its own where
-        c6m = jnp.where(ok & good, zacc * w_inv, 0.0)
-
-        t = s[:, 3:4][None] * crow["si"]
-        rr = t * t
-        r0 = a1 * t + a2
-        r4 = r2_ * r2_
-        r6 = r4 * r2_
-        r8 = r4 * r4
-        r0_2 = r0 * r0
-        r0_6 = r0_2 * r0_2 * r0_2
-        r0_8 = r0_6 * r0_2
-        den6 = r6 + r0_6
-        den8 = r8 + r0_8
-        rec = 1.0 / (den6 * den8)          # one divide for both dampings
-        den6_inv = rec * den8
-        den8_inv = rec * den6
-        damp_sum = s6 * den6_inv + s8 * rr * den8_inv
-
-        e_ij = -c6m * damp_sum
-        dd6 = -6.0 * s6 * r4 * den6_inv * den6_inv
-        dd8 = -8.0 * s8 * rr * r6 * den8_inv * den8_inv
-        coef = -c6m * (dd6 + dd8)
-        cfx = coef * dx
-        cfy = coef * dy
-        cfz = coef * dz
-        m = jnp.where(ok & good, (-2.0 * k3) * damp_sum * w_inv, 0.0)
-        dei = m * z_di
-        dej = m * z_dj
-        own_blocks = (e_ij, cfx, cfy, cfz, dei)
-        j_blocks = (("neg", cfx), ("neg", cfy), ("neg", cfz), dej)
-        if with_coulomb:
-            from nvalchemiops_tpu.mathops.math import erfc_approx
-            ok_c = base & (d2 < ccutoff * ccutoff)
-            ok_c = apply_home(ok_c, home)
-            inv_rc = jax.lax.rsqrt(jnp.where(ok_c, d2, 1.0))
-            qq = s[:, 5:6][None] * crow["q"]
-            if calpha > 0:
-                rc_ = jnp.where(ok_c, d2, 1.0) * inv_rc
-                ar = calpha * rc_
-                erfc_ar = erfc_approx(ar)
-                phi = erfc_ar * inv_rc
-                mag = (erfc_ar * inv_rc
-                       + 1.1283791670955126 * calpha * jnp.exp(-ar * ar)
-                       ) * inv_rc * inv_rc
-            else:
-                phi = inv_rc
-                mag = inv_rc * inv_rc * inv_rc
-            e_c = jnp.where(ok_c, 0.5 * qq * phi, 0.0)
-            ncoef_c = jnp.where(ok_c, -(qq * mag), 0.0)
-            mgx = ncoef_c * dx   # own-side force contribution (negated)
-            mgy = ncoef_c * dy
-            mgz = ncoef_c * dz
-            if combine_forces:
-                # fold Coulomb into the D3 force accumulators in-body:
-                # both sides negate identically, so the combined blocks
-                # stay valid on the shared j outputs; only e_c keeps its
-                # own accumulator pair (6 own + 5 j instead of 9 + 8 —
-                # the separated set exceeds 16 MB scoped VMEM at
-                # 16^3-cell/cap-40 geometries)
-                own_blocks = (e_ij, cfx + mgx, cfy + mgy, cfz + mgz,
-                              dei, e_c)
-                j_blocks = (("neg", cfx + mgx), ("neg", cfy + mgy),
-                            ("neg", cfz + mgz), dej, e_c)
-            else:
-                own_blocks = own_blocks + (e_c, mgx, mgy, mgz)
-                j_blocks = j_blocks + (e_c, ("neg", mgx), ("neg", mgy),
-                                       ("neg", mgz))
-        return own_blocks, j_blocks
-
-    si_plane = jnp.sqrt(r4r2_plane * 1.7320508075688772)
-    si_ext = jnp.sqrt(r4r2_ext * 1.7320508075688772)
-    own2_cols = list(geom_own) + [si_plane, w_plane]
-    wrows2 = {
-        "px": pxw, "py": pyw, "pz": pzw,
-        "si": wrow(si_ext), "w": wrow(w_ext), "zf": zf_w,
-    }
-    if with_coulomb:
-        own2_cols.append(q_plane)
-        wrows2["q"] = wrow(q_ext)
-    own2 = {"s": pack_columns(*own2_cols), "lf": lf_cols}
-    if with_coulomb:
-        n_own2, n_j2 = (6, 5) if combine_forces else (9, 8)
-    else:
-        n_own2, n_j2 = 5, 4
-    acc2, j2 = window_sweep(
-        dims, radius, cap, own2, wrows2,
-        {"e": eT_w, "edc": edcT_w},
-        direct_body, n_own2, n_j2, lane_w=lane_w, dtype=dtype,
-        interpret=interpret,
-    )
-    e_pl, fx_pl, fy_pl, fz_pl, decn_pl = acc2[:5]
-    fx_pl = fx_pl + fold_halo(grid, j2[0])
-    fy_pl = fy_pl + fold_halo(grid, j2[1])
-    fz_pl = fz_pl + fold_halo(grid, j2[2])
-    decn_pl = decn_pl + fold_halo(grid, j2[3])
-    if with_coulomb:
-        ec_pl = acc2[5] + fold_halo(grid, j2[4])
-        if not combine_forces:
-            fcx_pl = acc2[6] + fold_halo(grid, j2[5])
-            fcy_pl = acc2[7] + fold_halo(grid, j2[6])
-            fcz_pl = acc2[8] + fold_halo(grid, j2[7])
-
-    if skip_chain:
-        # debug/hybrid hook: passes 1-2 only, exposing the dE/dCN plane
-        return e_pl, fx_pl, fy_pl, fz_pl, cn_plane, decn_pl
-
-    # ---- pass 3: CN chain-rule forces ------------------------------------
-    def chain_body(own, crow, ccolt, home):
-        s = own["s"]
-        ok, inv_r, _r2, dx, dy, dz, *_rest = geom(s, crow, cutoff_sq)
-        ok = apply_home(ok, home)
-        rc = s[:, 3:4][None] + crow["rcov"]
-        rrq = rc * inv_r
-        f_cn = 1.0 / (1.0 + jnp.exp(-k1 * (rrq - 1.0)))
-        dcn_dr_r = -f_cn * (1.0 - f_cn) * k1 * rrq * inv_r * inv_r
-        de_chain = (s[:, 4:5][None] + crow["decn"]) * dcn_dr_r
-        coef = jnp.where(ok, de_chain, 0.0)
-        cfx = coef * dx
-        cfy = coef * dy
-        cfz = coef * dz
-        return (cfx, cfy, cfz), (("neg", cfx), ("neg", cfy), ("neg", cfz))
-
-    own3 = {"s": pack_columns(*geom_own, rcov_plane, decn_pl)}
-    wrows3 = {
-        "px": pxw, "py": pyw, "pz": pzw, "rcov": rcovw,
-        "decn": wrow(_extend_like(grid, decn_pl, 0.0)),
-    }
-    (fx3, fy3, fz3), j3 = window_sweep(
-        dims, radius, cap, own3, wrows3, {},
-        chain_body, 3, 3, lane_w=lane_w, dtype=dtype, interpret=interpret,
-    )
-    fx_t = fx_pl + fx3 + fold_halo(grid, j3[0])
-    fy_t = fy_pl + fy3 + fold_halo(grid, j3[1])
-    fz_t = fz_pl + fz3 + fold_halo(grid, j3[2])
-    if with_coulomb:
-        if combine_forces:
-            return e_pl, fx_t, fy_t, fz_t, cn_plane, ec_pl
-        return (e_pl, fx_t, fy_t, fz_t, cn_plane,
-                ec_pl, fcx_pl, fcy_pl, fcz_pl)
-    if compute_virial:
-        from nvalchemiops_tpu.neighborlist.neighbor_utils import (
-            unpack_shifts,
-        )
-
-        sx_c, sy_c, sz_c = unpack_shifts(grid.ext_shift_code)
-        cellm = jnp.asarray(cell, dtype).reshape(3, 3)
-        sxf = sx_c.astype(dtype)
-        syf = sy_c.astype(dtype)
-        szf = sz_c.astype(dtype)
-        shift_cart = [sxf * cellm[0, b] + syf * cellm[1, b]
-                      + szf * cellm[2, b] for b in range(3)]
-        jf = [j2[k] + j3[k] for k in range(3)]
-        r_int = (_interior(grid, grid.ext_px),
-                 _interior(grid, grid.ext_py),
-                 _interior(grid, grid.ext_pz))
-        f_int = (fx_t, fy_t, fz_t)
-        vir = jnp.stack([
-            jnp.stack([jnp.sum(f_int[a] * r_int[b])
-                       + jnp.sum(jf[a] * shift_cart[b][..., None])
-                       for b in range(3)])
-            for a in range(3)])
-        return e_pl, fx_t, fy_t, fz_t, cn_plane, vir
-    return e_pl, fx_t, fy_t, fz_t, cn_plane
-
-
 def grid_dftd3(
     grid: AtomGrid,
     numbers,
@@ -1679,13 +726,11 @@ def grid_dftd3(
     s6=1.0, k1=16.0, k3=-4.0,
     precision=None,
     engine: str | None = None,
-    block_G: int | None = None,
     compute_virial: bool = False,
     stencil=None,
     bilinear: str = "stack",
     feature_dtype=None,
     hybrid_cn: str = "stencil",
-    cell=None,
 ):
     """DFT-D3(BJ) energies/forces/CNs on the atom grid.
 
@@ -1694,65 +739,47 @@ def grid_dftd3(
     separable (see :func:`element_c6_mask`).  Returns
     ``(energy_total, forces [N,3], coord_num [N])`` in the grid's dtype.
 
-    ``precision`` controls the MXU precision of the C6-interpolation
-    matmuls.  The default (TPU bf16-input passes) gives ~5e-4 relative
-    energy and ~1e-4 force agreement with the exact f32 matrix path at
-    100k atoms; pass ``jax.lax.Precision.HIGHEST`` for full-f32 matmuls
-    (~2-3x slower interpolation) when tighter energies are required.
+    ``precision`` is the matmul precision of the C6-interpolation
+    einsums; ``None`` (default) means ``HIGHEST``, full-f32 products.  A
+    GPU may run ``Precision.DEFAULT`` float32 einsums in TF32, which moved
+    the 109,744-atom CsCl composite's D3 energy 1.7e-4 relative to
+    float64 on an H100 (against 1.5e-7 for full f32); pass it explicitly
+    to trade that accuracy for speed.
 
-    ``bilinear`` (XLA engine): ``"stack"`` (default; lhs-stacked: the
-    two einsums sharing the candidate ``rf`` window merge into one —
-    same dot products, the fattest window read once; bit-identical to
-    split, measured 24.67 vs 25.17 ms at 110k), ``"split"`` (three
-    einsums), or ``"quad"`` (documentation-only, rule 9).
-    ``feature_dtype=jnp.bfloat16`` stores the einsum feature planes in
-    bf16 (the MXU casts f32 operands to bf16 per pass anyway, so this
-    halves the windowed reads at no additional rounding).
+    ``bilinear``: ``"stack"`` (default; lhs-stacked: the two einsums
+    sharing the candidate ``rf`` window merge into one — same dot
+    products, the fattest window read once; bit-identical to split),
+    ``"split"`` (three einsums), or ``"quad"`` (one quadrant dot, kept
+    for comparison).  ``feature_dtype=jnp.bfloat16`` stores the einsum
+    feature planes in bf16, halving the windowed reads at the cost of
+    re-rounding the einsum operands.
 
     ``engine`` selects the sweep implementation:
 
-    - ``"xla"`` (default): pure-jnp row sweep — measured 28.4 ms at 110k
-      atoms on chip; traced parameters, precision/virial support.
-    - ``"window"``: pre-windowed per-cell Mosaic kernels
-      (pallas/window_sweep.py) — minimal (2Rx+1)*cap candidate slots per
-      atom in lane-aligned [cap, lane_w] tiles, one block per (z, y) row;
-      the CN pass alone measured 1.56 ms vs ~7 ms for the XLA sweep at
-      110k atoms.  D3 parameters become static (one recompile per
-      parameter set); requires no particular geometry (lane width rounds
-      (2Rx+1)*cap up to a multiple of 128), but pays padding slack when
-      (2Rx+1)*cap sits just above a multiple.
-    - ``"block"``: fused super-chunk Mosaic kernels
-      (pallas/block_sweep.py) — lane-aligned [G*cap, (G+2Rx)*cap] pair
-      blocks VMEM-resident, interpolation contractions on the MXU
-      (30.4 ms at the same config).  D3 parameters become static (one
-      recompile per parameter set).
-    - ``"pallas"``: first-generation per-cell Mosaic row sweep
-      (pallas/row_sweep.py), kept as the banded-sweep substrate.
+    - ``"xla"`` (default): the symmetric row sweep; traced parameters,
+      precision/virial support.
     - ``"hybrid"`` (implied by passing ``stencil=``): the chain-rule
       pass (and, with ``hybrid_cn="stencil"``, the CN pass) runs on the
       capacity-free voxel stencil (stencil.py — requires a valid
       occupancy-1 ``StencilGrid`` built for >= this cutoff) while the
-      MXU C6-interpolation pass stays on the row sweep.
-      ``hybrid_cn="row"`` keeps pass 1 on the row sweep too — measured
-      fastest split on chip (row CN 1.65 ms vs stencil CN 4.4; stencil
-      chain 5.7 ms vs row chain ~11 at 110k atoms; hybrid_probe).
+      C6-interpolation pass stays on the row sweep.
+      ``hybrid_cn="row"`` keeps pass 1 on the row sweep too.
 
-    ``precision`` applies to the XLA engine only.  Note the dC6/dCN chain
+    Any other ``engine`` raises ``ValueError``.  Note the dC6/dCN chain
     is a near-cancellation: ~1e-6 CN rounding differences amplify to
     ~1e-4 *absolute* force noise on weak-force atoms in every engine and
-    precision mode (measured identically for xla-default vs xla-HIGHEST).
+    precision mode.
 
     ``compute_virial`` appends a ``[3, 3]`` virial (same contract as the
-    matrix path's per-system virial, single system).  The window engine
-    supports it natively when ``cell`` is passed (virial assembled from
-    the engine's force planes + raw halo j accumulators — an NPT/stress
-    workload keeps the fast engine; round-4 VERDICT weak #5); any other
-    engine, or a missing ``cell``, falls back to the XLA scan-carry
-    implementation.
+    matrix path's per-system virial, single system), computed on the
+    row sweep's scan carries (a stencil, if given, is not used).
     """
+    if engine not in (None, "xla", "hybrid"):
+        raise ValueError(
+            f"unknown grid_dftd3 engine {engine!r}; expected 'xla' or "
+            "'hybrid'")
     dtype = grid.ext_px.dtype
     numbers = jnp.asarray(numbers, INDEX_DTYPE)
-    n = numbers.shape[0]
     zmax1 = rcov.shape[0]
     mesh = cn_ref_elem.shape[1]
     mask_elem = element_c6_mask(c6ab)
@@ -1776,57 +803,17 @@ def grid_dftd3(
     r4r2_ext = _extend_like(grid, r4r2_plane, 0.0)
 
     if compute_virial:
-        # the window engine computes the virial from its force planes +
-        # raw extended j accumulators (needs the cell for ghost shifts;
-        # see _grid_d3_window_impl); every other Mosaic engine still
-        # falls back to the XLA scan carries
-        if cell is None or engine not in (None, "window") \
-                or stencil is not None:
-            engine = "xla"
-            stencil = None
-    if engine is None and stencil is not None:
-        engine = "hybrid"
+        # the virial lives on the row sweep's scan carries
+        engine = "xla"
+        stencil = None
+    if engine is None:
+        engine = "xla" if stencil is None else "hybrid"
     if engine == "hybrid" and stencil is None:
         raise ValueError("engine='hybrid' requires a StencilGrid (stencil=...)")
-    if engine is None:
-        # auto-select: the pre-windowed per-cell Mosaic sweep measured
-        # 12.8 ms vs 21-22 (xla) / 30 (block) at 110k atoms and, with
-        # x-blocking, 98.6 ms vs 282 (xla) at 524k (cx=26 -> bx=13;
-        # benchmarks/window_531k_probe.py) — default to it on TPU
-        # whenever the window fits one 128-lane register
-        # ((2Rx+1)*cap <= 128) and the x-blocked row block stays in the
-        # proven <=2048-lane Mosaic regime; otherwise the jnp row sweep
-        # (traced parameters, no recompile per D3 parameter set, no
-        # Mosaic alignment sensitivity at awkward geometries).
-        from nvalchemiops_tpu.pallas.window_sweep import (
-            window_lane_width,
-            window_x_block,
-        )
-
-        lane_w = window_lane_width(grid.cap, grid.radius[2])
-        # lane_w > 128 is handled by the kernel's 128-lane sub-window
-        # split (round 4): the whole-window lane_w=256 lowering produced
-        # wrong j-side forces on chip (rel rms 3e-2, round 3,
-        # benchmarks/window_lane256_probe.py) while interpret agreed, so
-        # window_sweep now slices every window into 128-lane sub-slices
-        # and only the proven [cap, 128] block shapes reach Mosaic.  The
-        # remaining gate is capability-only: the x-blocked row block must
-        # stay in the proven <=2048-lane regime.
-        if (jax.default_backend() == "tpu"
-                and precision is None
-                and window_x_block(grid.dims[2], lane_w) * lane_w <= 2048):
-            engine = "window"
-        else:
-            engine = "xla"
-    if block_G is not None:
-        # snap the hint to a divisor of the grid's x extent
-        cx = grid.dims[2]
-        block_G = min((g for g in range(1, cx + 1) if cx % g == 0),
-                      key=lambda g: abs(g - block_G))
     chain_forces_a = None
     if engine == "hybrid":
         # passes 1 and 3 on the capacity-free voxel stencil; pass 2 (the
-        # MXU C6-interpolation sweep) on the row grid
+        # C6-interpolation sweep) on the row grid
         from nvalchemiops_tpu.stencil import (
             extend_stencil,
             scatter_to_stencil,
@@ -1842,7 +829,7 @@ def grid_dftd3(
                 stencil, rcov_a, float(cutoff), float(k1),
                 rcov_planes=rcov_planes)
             cn_override = cn_a
-        else:  # "row": pass 1 stays on the row sweep (measured faster)
+        else:  # "row": pass 1 stays on the row sweep
             cn_override = None
         e_pl, fx_pl, fy_pl, fz_pl, cn_pl, decn_pl = _grid_d3_impl(
             grid,
@@ -1863,48 +850,6 @@ def grid_dftd3(
         chain_forces_a = stencil_cn_chain_forces(
             stencil, rcov_a, decn_a, float(cutoff), float(k1),
             rcov_planes=rcov_planes)
-    elif engine == "window":
-        out = _grid_d3_window_impl(
-            grid,
-            z_plane, z_ext,
-            rcov_plane, rcov_ext,
-            r4r2_plane, r4r2_ext,
-            cn_ref_elem, mask_elem, c6p,
-            float(cutoff), float(a1), float(a2), float(s6), float(s8),
-            float(k1), float(k3),
-            grid.dims, grid.radius, grid.cap, int(mesh), int(zmax1),
-            jax.default_backend() != "tpu",
-            feature_dtype=feature_dtype,
-            compute_virial=compute_virial, cell=cell,
-        )
-        e_pl, fx_pl, fy_pl, fz_pl, cn_pl = out[:5]
-        if compute_virial:
-            virial = out[5]
-    elif engine == "block":
-        e_pl, fx_pl, fy_pl, fz_pl, cn_pl = _grid_d3_block_impl(
-            grid,
-            z_plane, z_ext,
-            rcov_plane, rcov_ext,
-            r4r2_plane, r4r2_ext,
-            cna_a, mask_a, c6p_a,
-            float(cutoff), float(a1), float(a2), float(s6), float(s8),
-            float(k1), float(k3),
-            grid.dims, grid.radius, grid.cap, int(mesh), int(zmax1),
-            jax.default_backend() != "tpu",
-            block_G=block_G, numbers_a=numbers,
-        )
-    elif engine == "pallas":
-        e_pl, fx_pl, fy_pl, fz_pl, cn_pl = _grid_d3_pallas_impl(
-            grid,
-            z_plane, z_ext,
-            rcov_plane, rcov_ext,
-            r4r2_plane, r4r2_ext,
-            cna_a, mask_a, c6p_a,
-            float(cutoff), float(a1), float(a2), float(s6), float(s8),
-            float(k1), float(k3),
-            grid.dims, grid.radius, grid.cap, int(mesh), int(zmax1),
-            jax.default_backend() != "tpu",
-        )
     else:
         out = _grid_d3_impl(
             grid,
@@ -1951,36 +896,27 @@ def grid_dftd3_coulomb(
     coulomb_cutoff: float | None = None,
     alpha: float = 0.0,
     s6=1.0, k1=16.0, k3=-4.0,
-    engine: str = "block",
+    engine: str = "xla",
     combine_forces: bool = False,
 ):
     """Fused DFT-D3(BJ) + real-space (erfc-damped) Coulomb on one sweep.
 
     The MLIP real-space workload in a single pass: the Coulomb pair terms
-    ride the D3 direct pass's geometry — inside the super-chunk Mosaic
-    kernel (``engine="block"``), the pre-windowed per-cell Mosaic kernel
-    (``engine="window"``), or the jnp row sweep (``engine="xla"``,
-    geometry CSEd by XLA) — saving a full second sweep over all candidate
-    pairs (the separate-call path costs one extra grid traversal).  Both
-    cutoffs must be <= the cutoff the grid was built for.
-
-    VMEM note: the separated-channel fused window pass-2 body carries
-    9 own + 8 j-side accumulators; at large geometries (measured: 16^3
-    cells, cap 40, lane 128) it exceeds the 16 MB scoped-VMEM limit on
-    chip.  ``combine_forces=True`` folds the Coulomb pair forces into
-    the D3 force accumulators inside the kernel (6 + 5 outputs — fits
-    that geometry) and is the MD-step configuration: per-channel
-    energies are still returned separately, only the force channels
-    merge.
+    ride the D3 direct pass's geometry on the row sweep (``engine="xla"``,
+    the only engine; any other name raises ``ValueError``), saving a full
+    second sweep over all candidate pairs.  Both cutoffs must be <= the
+    cutoff the grid was built for.
 
     Returns ``(e_d3_total, f_d3 [N,3], coord_num [N],
     e_coulomb [N], f_coulomb [N,3])``; energy/force channels are kept
     separate so callers can scale them independently.  With
     ``combine_forces`` the force entry carries D3 + Coulomb combined
     and the trailing ``f_coulomb`` is ``None``:
-    ``(e_d3_total, f_total, coord_num, e_coulomb, None)`` (every
-    engine honours it, so results are engine-interchangeable).
+    ``(e_d3_total, f_total, coord_num, e_coulomb, None)``.
     """
+    if engine != "xla":
+        raise ValueError(
+            f"unknown grid_dftd3_coulomb engine {engine!r}; expected 'xla'")
     dtype = grid.ext_px.dtype
     numbers = jnp.asarray(numbers, INDEX_DTYPE)
     zmax1 = rcov.shape[0]
@@ -2007,64 +943,23 @@ def grid_dftd3_coulomb(
     r4r2_ext = _extend_like(grid, r4r2_plane, 0.0)
     q_ext = _extend_like(grid, q_plane, 0.0)
 
-    if engine == "xla":
-        (e_pl, fx_pl, fy_pl, fz_pl, cn_pl,
-         ec_pl, fcx_pl, fcy_pl, fcz_pl) = _grid_d3_impl(
-            grid,
-            z_plane, z_ext,
-            rcov_plane, rcov_ext,
-            r4r2_plane, r4r2_ext,
-            cna_a, mask_a, c6p_a,
-            jnp.asarray(cutoff, dtype), jnp.asarray(a1, dtype),
-            jnp.asarray(a2, dtype), jnp.asarray(s6, dtype),
-            jnp.asarray(s8, dtype), jnp.asarray(k1, dtype),
-            jnp.asarray(k3, dtype),
-            grid.dims, grid.radius, grid.cap, int(mesh), int(zmax1),
-            numbers_a=numbers,
-            q_plane=q_plane, q_ext=q_ext,
-            coulomb_alpha=float(alpha),
-            coulomb_cutoff=float(coulomb_cutoff),
-        )
-    elif engine == "window":
-        outs = _grid_d3_window_impl(
-            grid,
-            z_plane, z_ext,
-            rcov_plane, rcov_ext,
-            r4r2_plane, r4r2_ext,
-            cn_ref_elem, mask_elem, c6p,
-            float(cutoff), float(a1), float(a2), float(s6), float(s8),
-            float(k1), float(k3),
-            grid.dims, grid.radius, grid.cap, int(mesh), int(zmax1),
-            jax.default_backend() != "tpu",
-            q_plane=q_plane, q_ext=q_ext, with_coulomb=True,
-            calpha=float(alpha), ccutoff=float(coulomb_cutoff),
-            combine_forces=combine_forces,
-        )
-        if combine_forces:
-            e_pl, fx_pl, fy_pl, fz_pl, cn_pl, ec_pl = outs
-            energy = jnp.sum(e_pl)
-            f1, f2, f3, coord_num, e_c = gather_rows_from_grid(
-                grid, (fx_pl, fy_pl, fz_pl, cn_pl, ec_pl))
-            return (energy, jnp.stack([f1, f2, f3], axis=-1), coord_num,
-                    e_c, None)
-        (e_pl, fx_pl, fy_pl, fz_pl, cn_pl,
-         ec_pl, fcx_pl, fcy_pl, fcz_pl) = outs
-    else:
-        (e_pl, fx_pl, fy_pl, fz_pl, cn_pl,
-         ec_pl, fcx_pl, fcy_pl, fcz_pl) = _grid_d3_block_impl(
-            grid,
-            z_plane, z_ext,
-            rcov_plane, rcov_ext,
-            r4r2_plane, r4r2_ext,
-            cna_a, mask_a, c6p_a,
-            float(cutoff), float(a1), float(a2), float(s6), float(s8),
-            float(k1), float(k3),
-            grid.dims, grid.radius, grid.cap, int(mesh), int(zmax1),
-            jax.default_backend() != "tpu",
-            q_plane=q_plane, q_ext=q_ext, with_coulomb=True,
-            calpha=float(alpha), ccutoff=float(coulomb_cutoff),
-            numbers_a=numbers,
-        )
+    (e_pl, fx_pl, fy_pl, fz_pl, cn_pl,
+     ec_pl, fcx_pl, fcy_pl, fcz_pl) = _grid_d3_impl(
+        grid,
+        z_plane, z_ext,
+        rcov_plane, rcov_ext,
+        r4r2_plane, r4r2_ext,
+        cna_a, mask_a, c6p_a,
+        jnp.asarray(cutoff, dtype), jnp.asarray(a1, dtype),
+        jnp.asarray(a2, dtype), jnp.asarray(s6, dtype),
+        jnp.asarray(s8, dtype), jnp.asarray(k1, dtype),
+        jnp.asarray(k3, dtype),
+        grid.dims, grid.radius, grid.cap, int(mesh), int(zmax1),
+        numbers_a=numbers,
+        q_plane=q_plane, q_ext=q_ext,
+        coulomb_alpha=float(alpha),
+        coulomb_cutoff=float(coulomb_cutoff),
+    )
     energy = jnp.sum(e_pl)
     f1, f2, f3, coord_num, e_c, fc1, fc2, fc3 = gather_rows_from_grid(
         grid, (fx_pl, fy_pl, fz_pl, cn_pl, ec_pl, fcx_pl, fcy_pl, fcz_pl))
@@ -2093,13 +988,13 @@ def batch_grid_dftd3(
 ):
     """Batched DFT-D3(BJ) on a fused whole-batch halo grid.
 
-    The TPU counterpart of the reference's batched D3
+    The grid counterpart of the reference's batched D3
     (dispersion/dftd3.py batch path; benchmark config 128 x 2000 atoms):
     systems share one static grid geometry (dims/radius/capacity sized
     from ``cells[0]``), the batch grid is built by ONE fused
     compound-key sort (``grid.batch_build_atom_grid`` — a vmapped
-    per-system build loses the sort/histogram/sorted-gather lowerings,
-    round-4 VERDICT weak #2), and the 3-pass sweep maps over the leading
+    per-system build loses the sort/histogram/sorted-gather lowerings),
+    and the 3-pass sweep maps over the leading
     system axis — XLA batches every plane op and einsum, which is
     exactly the reference's "many systems on one device" scaling story.
 

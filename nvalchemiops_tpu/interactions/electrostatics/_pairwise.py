@@ -1,7 +1,7 @@
 # SPDX-License-Identifier: Apache-2.0
 """Vectorized pairwise (damped-)Coulomb core shared by coulomb.py and ewald.py.
 
-TPU-native counterpart of the 20 Warp real-space kernels in
+JAX counterpart of the 20 Warp real-space kernels in
 ``nvalchemiops/interactions/electrostatics/coulomb.py:133-714`` and
 ``ewald_kernels.py:265-1494`` ({energy, energy+forces, +charge-grad} x
 {list, matrix} x {single, batch}).  One [N, K] gather formulation covers the
@@ -13,8 +13,8 @@ whole matrix family:
 - the COO/CSR "list" format is handled by treating the flat pair list as one
   row-major candidate block (see coulomb.py public wrappers).
 
-TPU layout: all geometry is computed as separate x/y/z planes (arrays with a
-trailing dim of 3 are tile-padded 42x on TPU), and shift matrices may arrive
+Layout: all geometry is computed as separate x/y/z planes (no arrays with
+a thin trailing dim of 3), and shift matrices may arrive
 either as reference-parity AoS [N, K, 3] or bit-packed int32 [N, K]
 (neighbor_utils.pack_shifts) — the packed form is the at-scale layout.
 
@@ -225,7 +225,7 @@ def pair_charge_gradients(
 
 
 def jax_erfc(x):
-    """erfc via jax.scipy.special (accurate); Pallas paths use erfc_approx."""
+    """erfc via jax.scipy.special (accurate); the grid sweeps use erfc_approx."""
     from jax.scipy.special import erfc
 
     return erfc(x)

@@ -1,7 +1,7 @@
 # SPDX-License-Identifier: Apache-2.0
 """Direct and erfc-damped Coulomb interactions.
 
-TPU-native counterpart of
+JAX counterpart of
 ``nvalchemiops/interactions/electrostatics/coulomb.py`` (8 Warp kernels at
 coulomb.py:133-714, wrappers at :1336-1691).  ``alpha = 0`` gives the bare
 1/r law; ``alpha > 0`` the erfc-damped form used as the Ewald/PME real-space
@@ -10,9 +10,9 @@ term.  Per-atom energies are returned (sum for the total).
 Differences from the reference, by design:
 
 - The reference force-upcasts everything to float64 on CUDA
-  (coulomb.py:1423-1426).  float64 is software-emulated on TPU, so kernels
-  here run in the input dtype; pass float64 arrays (with x64 enabled) to get
-  the reference's precision behavior.
+  (coulomb.py:1423-1426).  Kernels here run in the input dtype; pass
+  float64 arrays (with x64 enabled) to get the reference's precision
+  behavior.
 - Both neighbor formats map onto the same vectorized core: the padded matrix
   via [N, K] gathers, the COO list via per-pair arithmetic + a sorted
   ``segment_sum`` (our CSR-ordered pair lists make the segment reduction

@@ -34,7 +34,7 @@ def dense_coulomb_energy_forces(positions, charges, cell, cutoff, alpha=0.0):
     alpha_t = jnp.asarray(alpha, dtype)
 
     inv_cell = jnp.linalg.inv(cell)
-    frac = apply_mat3(positions, inv_cell)  # exact f32 (no bf16 MXU)
+    frac = apply_mat3(positions, inv_cell)  # exact f32 (no matmul)
     df = []
     for c in range(3):
         fc = frac[:, c]

@@ -1,7 +1,7 @@
 # SPDX-License-Identifier: Apache-2.0
 """Classical Ewald summation.
 
-TPU-native counterpart of
+JAX counterpart of
 ``nvalchemiops/interactions/electrostatics/ewald.py`` (+ its 30+ Warp
 kernels in ewald_kernels.py).  The physics is identical —
 
@@ -12,13 +12,13 @@ kernels in ewald_kernels.py).  The physics is identical —
     E_bg,i  = (pi / (2 alpha^2)) q_i Q_total / V
 
 — but the K-major / atom-major scalar loops of the reference
-(ewald_kernels.py:1495-1979) become dense MXU matmuls: phases are
+(ewald_kernels.py:1495-1979) become dense matmuls: phases are
 ``positions @ k_vectors^T`` tiles, structure factors are charge-weighted
 row sums, and per-atom energies/forces/charge-gradients are second matmuls
 against the weighted structure factors.  Batched systems are packed into a
 padded [B, n_max] layout (pure gathers, since concatenated systems are
 contiguous) so everything runs as one batched GEMM; k-space is processed in
-VMEM-sized chunks under ``lax.scan``.
+bounded chunks under ``lax.scan``.
 
 Real space delegates to the shared damped-Coulomb core (coulomb.py), exactly
 like the reference shares its real-space kernels between Coulomb and Ewald.
@@ -209,16 +209,15 @@ def _reciprocal_core(
             0.0,
         )  # [B, C]
 
-        # phases k.r on the VPU in exact f32 — the K=3 contraction on the
-        # MXU truncates coordinates to bf16 (measured 8e-3 relative energy
-        # error on chip); see mathops.dot_phases
+        # phases k.r elementwise in exact f32 — a reduced-precision K=3
+        # contraction truncates coordinates (8e-3 relative energy error
+        # with bf16 operands); see mathops.dot_phases
         phase = dot_phases(pos_pad, kc)  # [B, n_max, C]
         cos_p = jnp.cos(phase)
         sin_p = jnp.sin(phase)
         # structure-factor / per-atom reductions contract exact f32 cos/sin
-        # values at bf16_3x (HIGH, ~f32 quality at half the 6-pass cost;
-        # measured 1.2e-6 end accuracy and ~1.5 ms cheaper than HIGHEST
-        # at the 64x2000 batch config)
+        # values at HIGH precision (1.2e-6 end accuracy at the 64x2000
+        # batch config)
         hi = jax.lax.Precision.HIGH
         s_re = jnp.einsum("bn,bnc->bc", q_pad, cos_p, precision=hi) * green
         s_im = jnp.einsum("bn,bnc->bc", q_pad, sin_p, precision=hi) * green

@@ -1,7 +1,7 @@
 # SPDX-License-Identifier: Apache-2.0
 """Reciprocal-space k-vector generation.
 
-TPU-native counterpart of
+JAX counterpart of
 ``nvalchemiops/interactions/electrostatics/k_vectors.py:19-298``.  Both
 generators keep the reference conventions:
 
@@ -81,7 +81,8 @@ def generate_k_vectors_ewald_summation(cell, k_cutoff, max_hkl=None):
         dtype=cell_b.dtype,
     )
     reciprocal = TWOPI * jnp.linalg.inv(jnp.swapaxes(cell_b, -1, -2))
-    # exact f32 (TPU lowers the K=3 einsum to bf16 MXU; see mathops.apply_mat3)
+    # exact f32 elementwise (no reduced-precision K=3 einsum; see
+    # mathops.apply_mat3)
     k_vectors = sum(
         millers[None, :, d:d + 1] * reciprocal[:, None, d] for d in range(3)
     )
@@ -113,7 +114,8 @@ def generate_k_vectors_pme(cell, mesh_dimensions, reciprocal_cell=None):
     gx, gy, gz = jnp.meshgrid(mx, my, mz, indexing="ij")
     miller_grid = jnp.stack([gx, gy, gz], axis=-1)  # [nx, ny, nz//2+1, 3]
 
-    # exact f32 (TPU lowers the K=3 einsum to bf16 MXU; see mathops.apply_mat3)
+    # exact f32 elementwise (no reduced-precision K=3 einsum; see
+    # mathops.apply_mat3)
     k_vectors = sum(
         miller_grid[None, ..., d:d + 1]
         * reciprocal_cell[:, None, None, None, d]

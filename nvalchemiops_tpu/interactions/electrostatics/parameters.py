@@ -1,7 +1,7 @@
 # SPDX-License-Identifier: Apache-2.0
 """Ewald / PME parameter estimation.
 
-TPU-native counterpart of
+JAX counterpart of
 ``nvalchemiops/interactions/electrostatics/parameters.py:67-437``.
 Kolafa-Perram balancing for Ewald and B-spline error analysis for the PME
 mesh.  The dataclass containers mirror the reference; mesh dimensions are

@@ -1,7 +1,7 @@
 # SPDX-License-Identifier: Apache-2.0
 """Particle Mesh Ewald (PME) reciprocal-space electrostatics.
 
-TPU-native counterpart of
+JAX counterpart of
 ``nvalchemiops/interactions/electrostatics/pme.py`` (pipeline at
 pme.py:1338-1479, public API at :1482-1994) and the Green's-function /
 correction kernels in ``pme_kernels.py:120-664``.  Pipeline:
@@ -120,8 +120,6 @@ def pme_green_structure_factor(k_squared, mesh_dimensions, alpha, cell, spline_o
         "compute_charge_gradients",
         "tile_capacity",
         "fft_mode",
-        "gather_engine",
-        "spread_engine",
     ),
 )
 def _pme_reciprocal_impl(
@@ -138,8 +136,6 @@ def _pme_reciprocal_impl(
     k_squared,
     tile_capacity=None,
     fft_mode: str = "xla",
-    gather_engine: str = "xla",
-    spread_engine: str = "xla",
 ):
     """Core pipeline (reference: pme.py:1338-1479), compiled as one program."""
     dtype = positions.dtype
@@ -183,8 +179,7 @@ def _pme_reciprocal_impl(
         with jax.named_scope("pme.spread"):
             mesh = jax.lax.cond(
                 tiles_ok,
-                lambda _: sw.windowed_spread(tiles, charges,
-                                             engine=spread_engine),
+                lambda _: sw.windowed_spread(tiles, charges),
                 _dense_spread, None,
             )
     else:
@@ -232,13 +227,6 @@ def _pme_reciprocal_impl(
     if use_win:
         def _win_gather(_):
             if compute_forces:
-                if gather_engine == "pallas":
-                    # VMEM-resident Mosaic gather (rule 8: memory-bound)
-                    from nvalchemiops_tpu.pallas.windowed_gather import (
-                        pallas_windowed_gather_grad,
-                    )
-
-                    return pallas_windowed_gather_grad(tiles, potential_mesh)
                 return sw.windowed_gather(tiles, potential_mesh, with_gradient=True)
             return sw.windowed_gather(tiles, potential_mesh), jnp.zeros((n, 3), dtype)
 
@@ -317,6 +305,14 @@ def _pme_reciprocal_impl(
     return energies, forces, charge_grads
 
 
+def _check_mesh_engines(spread_engine: str, gather_engine: str):
+    """The windowed spread and gather have one engine, plain XLA."""
+    for name, value in (("spread_engine", spread_engine),
+                        ("gather_engine", gather_engine)):
+        if value != "xla":
+            raise ValueError(f"unknown PME {name} {value!r}; expected 'xla'")
+
+
 def pme_reciprocal_space(
     positions,
     charges,
@@ -346,11 +342,12 @@ def pme_reciprocal_space(
     (:func:`spline_windowed.observed_tile_capacity`) — per-tile work
     scales ~capacity, and crystals sit far below the safe bound.
 
-    ``fft_mode="matmul"`` runs the whole FFT-convolve-inverse as MXU
-    matmuls (``mathops.matmul_dft``) — the small-batched-mesh fast path.
-    ``spread_engine``/``gather_engine`` = ``"pallas"`` run the windowed
-    spread/force-gather per-tile contractions in fused Mosaic kernels.
+    ``fft_mode="matmul"`` runs the whole FFT-convolve-inverse as dense
+    matmuls (``mathops.matmul_dft``) — the small-batched-mesh path.
+    ``spread_engine``/``gather_engine``: ``"xla"``, the only engine;
+    other names raise ``ValueError``.
     """
+    _check_mesh_engines(spread_engine, gather_engine)
     dtype = positions.dtype
     cell_b = jnp.asarray(cell, dtype=dtype).reshape(-1, 3, 3)
     alpha_arr = jnp.asarray(alpha, dtype=dtype).reshape(-1)
@@ -364,7 +361,6 @@ def pme_reciprocal_space(
         positions, charges, cell_b, alpha_arr, tuple(mesh_dimensions), spline_order,
         batch_idx, compute_forces, compute_charge_gradients, k_vectors, k_squared,
         tile_capacity=tile_capacity, fft_mode=fft_mode,
-        gather_engine=gather_engine, spread_engine=spread_engine,
     )
     if forces is not None and cg is not None:
         return energies, forces, cg
@@ -447,8 +443,6 @@ def _windowed_pme_single(positions, charges, cell, alpha, mesh_dimensions,
                          spline_order: int, cap: int, compute_forces: bool,
                          fft_mode: str = "xla",
                          compute_charge_gradients: bool = False,
-                         spread_engine: str = "xla",
-                         gather_engine: str = "xla",
                          tile: int = 8):
     """One system through the tile-windowed PME pipeline (vmappable).
 
@@ -463,12 +457,12 @@ def _windowed_pme_single(positions, charges, cell, alpha, mesh_dimensions,
     tiles = sw.build_mesh_tiles(positions, cell, mesh_dimensions,
                                 spline_order, cap, tile=tile,
                                 need_grad=compute_forces)
-    mesh = sw.windowed_spread(tiles, charges, engine=spread_engine)
+    mesh = sw.windowed_spread(tiles, charges)
     _, k_squared = generate_k_vectors_pme(cell, mesh_dimensions)
     green, sf_sq = pme_green_structure_factor(
         k_squared, mesh_dimensions, alpha, cell, spline_order)
     if fft_mode == "matmul":
-        # small batched meshes: the whole convolution as MXU matmuls
+        # small batched meshes: the whole convolution as dense matmuls
         # (mathops/matmul_dft.py) — no complex tensors, no XLA FFT
         from nvalchemiops_tpu.mathops.matmul_dft import matmul_rfft_convolve
 
@@ -480,16 +474,8 @@ def _windowed_pme_single(positions, charges, cell, alpha, mesh_dimensions,
             norm="forward").astype(dtype)
 
     if compute_forces:
-        if gather_engine == "pallas":
-            from nvalchemiops_tpu.pallas.windowed_gather import (
-                pallas_windowed_gather_grad,
-            )
-
-            raw, grad_frac = pallas_windowed_gather_grad(tiles,
-                                                         potential_mesh)
-        else:
-            raw, grad_frac = sw.windowed_gather(tiles, potential_mesh,
-                                                with_gradient=True)
+        raw, grad_frac = sw.windowed_gather(tiles, potential_mesh,
+                                            with_gradient=True)
     else:
         raw = sw.windowed_gather(tiles, potential_mesh)
         grad_frac = None
@@ -522,21 +508,18 @@ def _windowed_pme_single(positions, charges, cell, alpha, mesh_dimensions,
     jax.jit,
     static_argnames=("mesh_dimensions", "spline_order", "cap",
                      "compute_forces", "fft_mode",
-                     "compute_charge_gradients", "spread_engine",
-                     "gather_engine", "tile"),
+                     "compute_charge_gradients", "tile"),
 )
 def _batch_windowed_pme_impl(positions, charges, cells, alphas,
                              mesh_dimensions, spline_order, cap,
                              compute_forces, fft_mode="xla",
                              compute_charge_gradients=False,
-                             spread_engine="xla", gather_engine="xla",
                              tile=8):
     return jax.vmap(
         lambda p, q, c, a: _windowed_pme_single(
             p, q, c, a, mesh_dimensions, spline_order, cap, compute_forces,
             fft_mode=fft_mode,
             compute_charge_gradients=compute_charge_gradients,
-            spread_engine=spread_engine, gather_engine=gather_engine,
             tile=tile)
     )(positions, charges, cells, alphas)
 
@@ -548,14 +531,10 @@ def _dense_pme_single(positions, charges, cell, alpha, mesh_dimensions,
     """One system through the dense separable-matmul PME pipeline (vmappable).
 
     No mesh tiles at all: spread/gather are the chunked separable matmuls
-    (spline.py ``dense_*_single``, design rule 5).  Round-4 fix: this
-    previously called the public spline_spread/gather entry points, whose
-    single-system auto-select routed BACK to the tile-windowed path at
-    windowed-applicable meshes — the "dense" engine was secretly the
-    windowed one with default tiles (14.8 ms at 64x2000/32^3 vs the true
-    dense pipeline's separable spread at 1.3 ms,
-    benchmarks/r4_densespread_probe.py).  The dense helpers bypass the
-    dispatch.
+    (spline.py ``dense_*_single``).  They bypass the public
+    spline_spread/gather entry points, whose single-system auto-select
+    would route back to the tile-windowed path at windowed-applicable
+    meshes.
     """
     from nvalchemiops_tpu.spline import (
         dense_gather_gradient_single,
@@ -634,33 +613,27 @@ def batch_pme_reciprocal(positions, charges, cells, alpha, mesh_dimensions,
     """Batched reciprocal-space PME on uniform [B, n, 3] system stacks.
 
     The concatenated ``batch_idx`` path of :func:`pme_reciprocal_space`
-    spreads with scatter-adds (measured 144 ms at the reference's 64x2000
-    config); uniform batches instead vmap the tile-windowed pipeline —
-    measured 9.8 ms energies / 14.8 ms with forces at the same config
-    (the reference's H100 number is 5.76 ms energies-only).
+    spreads with scatter-adds; uniform batches instead vmap a per-system
+    pipeline (the reference's H100 number at 64 x 2,000 atoms is 5.76 ms
+    energies-only).
 
-    ``fft_mode="auto"`` (default) picks the MXU matmul-DFT convolution
-    for small per-system meshes (<= 32^3 points; measured 14.71 vs
-    15.23 ms E+F at 64x2000/32^3) and the XLA FFT for larger ones
-    (where the FFT wins: 10.70 vs 11.04 ms at 128^3 single-system) —
-    benchmarks/fft_mode_probe.py.
+    ``fft_mode="auto"`` (default) picks the matmul-DFT convolution for
+    small per-system meshes (<= 32^3 points) and the XLA FFT for larger
+    ones.  The crossover was tuned on an earlier accelerator and is to be
+    measured again on the GPU.
 
     ``engine`` selects the per-system spread/gather implementation:
 
     - ``"dense"`` — tile-free chunked separable matmuls (no tile build,
-      no capacity padding).  Round 4: measured 4.3 ms E / 6.8 ms E+F at
-      the reference's 64x2000/32^3 config (H100 5.76 E) once the
-      pipeline stopped round-tripping through the public spline entry
-      points' windowed auto-select (r4_pmebatch_stage_probe).
+      no capacity padding).
     - ``"windowed"`` — tile-windowed, shared tiles reused by the force
-      gather (8.6 ms E at the same config; the per-tile [cap, W^3]
-      expansion dominates small meshes).  ``spread_engine``/
-      ``gather_engine`` = ``"pallas"`` run the per-tile contractions in
-      fused Mosaic kernels (vmapped over systems).
+      gather (the per-tile [cap, W^3] expansion dominates small meshes).  ``spread_engine``/
+      ``gather_engine`` accept ``"xla"`` only, as in
+      :func:`pme_reciprocal_space`.
     - ``"auto"`` (default) — dense for per-system meshes up to 32^3
       points, windowed above (the dense [n, ny*nz] intermediate scales
       with the mesh; the crossover is unmeasured past 32^3, so the
-      proven tile path keeps large meshes).
+      tile path keeps large meshes).
 
     ``alpha`` scalar or [B]; ``cells`` [3, 3] shared or [B, 3, 3].
     Returns per-atom energies [B, n] (self/background corrected), plus
@@ -670,12 +643,12 @@ def batch_pme_reciprocal(positions, charges, cells, alpha, mesh_dimensions,
     """
     from nvalchemiops_tpu import spline_windowed as sw
 
+    _check_mesh_engines(spread_engine, gather_engine)
     if tile is None:
         # small per-system meshes: 16-point tiles shrink the per-tile W^2
-        # expansion intermediates ~70x and fatten the MXU matmuls
-        # (measured 8.70 vs 10.62 ms E at 64x2000/32^3,
-        # benchmarks/pme_batch_engine_probe.py).  Only when the caller did
-        # not pass a tile_capacity (capacities are tile-specific).
+        # expansion intermediates ~70x and fatten the matmuls.  Only when
+        # the caller did not pass a tile_capacity (capacities are
+        # tile-specific).
         ntiles8 = math.prod(int(d) // 8 for d in mesh_dimensions)
         if (tile_capacity is None and ntiles8 <= 512
                 and all(int(d) % 16 == 0 for d in mesh_dimensions)):
@@ -713,7 +686,6 @@ def batch_pme_reciprocal(positions, charges, cells, alpha, mesh_dimensions,
             tuple(int(d) for d in mesh_dimensions), int(spline_order),
             int(tile_capacity), bool(compute_forces), fft_mode=fft_mode,
             compute_charge_gradients=bool(compute_charge_gradients),
-            spread_engine=spread_engine, gather_engine=gather_engine,
             tile=int(tile))
     if compute_forces and compute_charge_gradients:
         return energies, forces, charge_grads

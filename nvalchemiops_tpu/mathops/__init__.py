@@ -1,7 +1,7 @@
 # SPDX-License-Identifier: Apache-2.0
 """Math building blocks shared by the kernel modules.
 
-TPU-native counterpart of ``nvalchemiops/math`` (reference: math/math.py,
+JAX counterpart of ``nvalchemiops/math`` (reference: math/math.py,
 math/spherical_harmonics.py, math/gto.py).  The Warp device functions become
 plain jnp functions — usable both in traced XLA code and inside Pallas kernel
 bodies (which accept jnp expressions directly).

@@ -1,7 +1,7 @@
 # SPDX-License-Identifier: Apache-2.0
 """Gaussian-type-orbital densities and analytic Fourier transforms (L <= 2).
 
-TPU-native counterpart of ``nvalchemiops/math/gto.py`` (reference:
+JAX counterpart of ``nvalchemiops/math/gto.py`` (reference:
 math/gto.py:143-860).  Conventions:
 
 - Density: ``phi_{l,m}(r, sigma) = N * Y_l^m(r_hat) * exp(-r^2 / (2 sigma^2))``

@@ -1,17 +1,15 @@
 # SPDX-License-Identifier: Apache-2.0
-"""Separable 3-D real-FFT convolution as MXU matmuls (small-mesh path).
+"""Separable 3-D real-FFT convolution as dense matmuls (small-mesh path).
 
 PME's reciprocal space is ``irfftn(rfftn(mesh) * kernel)`` with a *real*
 kernel (Green's function x B-spline deconvolution, pme.py).  A DFT along
 one axis is a matmul by the [n, n] transform matrix; for PME meshes
-(n <= 128) the full O(n^2)-per-axis contraction is a few tens of GFLOPs —
-trivial on the MXU — while XLA's generic TPU FFT pays dispatch/layout
-overhead that dominates at small batched sizes (the 64 x 32^3 batched-PME
-regime).  Everything stays in real planes (structure-of-arrays re/im,
-design rule 1): no complex tensors materialize anywhere.
+(n <= 128) the full O(n^2)-per-axis contraction is a few tens of GFLOPs,
+which can beat a generic FFT's dispatch/layout overhead at small batched
+sizes (the 64 x 32^3 batched-PME regime).  Everything stays in real planes
+(structure-of-arrays re/im): no complex tensors materialize anywhere.
 
-Matmuls run ``precision=HIGHEST`` — phase accuracy is geometry accuracy
-(design rule 16), and the extra MXU passes are free at these sizes.
+Matmuls run ``precision=HIGHEST`` — phase accuracy is geometry accuracy.
 
 Normalization matches the library's PME convention: unscaled forward
 (``rfftn(norm="backward")``) and unscaled inverse
@@ -79,7 +77,7 @@ def _cyc(x):
 def matmul_rfft_convolve(mesh, kernel):
     """``irfftn(rfftn(mesh, norm="backward") * kernel, norm="forward")``
     over the last three axes, with a real ``kernel`` of shape
-    ``mesh.shape[-3:-1] + (n_last//2 + 1,)``, as pure MXU matmuls.
+    ``mesh.shape[-3:-1] + (n_last//2 + 1,)``, as pure matmuls.
 
     ``mesh`` may carry arbitrary leading batch axes.  Output is real,
     same shape and dtype as ``mesh``.

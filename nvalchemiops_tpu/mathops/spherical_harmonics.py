@@ -1,7 +1,7 @@
 # SPDX-License-Identifier: Apache-2.0
 """Real spherical harmonics for L <= 2 with analytical gradients.
 
-TPU-native counterpart of ``nvalchemiops/math/spherical_harmonics.py``
+JAX counterpart of ``nvalchemiops/math/spherical_harmonics.py``
 (reference: math/spherical_harmonics.py:108-660).  Same conventions:
 
 - Real harmonics ordered ``[Y00, Y1m1, Y10, Y1p1, Y2m2, Y2m1, Y20, Y2p1, Y2p2]``

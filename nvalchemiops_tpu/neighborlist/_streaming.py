@@ -7,8 +7,8 @@ batch_naive.py:37-210, *_dual_cutoff.py) with a single scatter-free engine:
 - the candidate space is the Cartesian product ``shifts x atoms`` enumerated
   column-major (priority = shift_idx * N + j),
 - candidates are processed in fixed-size column chunks under ``lax.scan``,
-- per chunk, squared distances are three fused [N, C] broadcasts (a layout the
-  TPU VPU likes: C is the 128-lane axis),
+- per chunk, squared distances are three fused [N, C] broadcasts (C is
+  the wide trailing axis),
 - hits are merged into a running per-row top-k of priority keys
   (see neighbor_utils.pack_block / merge_topk), giving deterministic,
   (shift, j)-sorted rows.
@@ -33,7 +33,7 @@ from nvalchemiops_tpu.neighborlist.neighbor_utils import (
 
 
 def _choose_chunk(total_cols: int, max_neighbors: int) -> int:
-    """Static column-chunk size: lane-aligned, >= 2*K, bounded for memory."""
+    """Static column-chunk size: a multiple of 128, >= 2*K, bounded for memory."""
     target = max(512, 2 * max_neighbors)
     target = min(total_cols, max(target, 2048))
     return ((target + 127) // 128) * 128

@@ -1,7 +1,7 @@
 # SPDX-License-Identifier: Apache-2.0
 """Batched O(N) cell-list neighbor construction.
 
-TPU-native counterpart of ``nvalchemiops/neighborlist/batch_cell_list.py``
+JAX counterpart of ``nvalchemiops/neighborlist/batch_cell_list.py``
 (kernels at batch_cell_list.py:35-657, wrappers at :659-1468).  Per-system
 cell grids are packed into one flat array with a uniform per-system stride
 (the reference packs with exact per-system offsets; a uniform stride keeps
@@ -168,7 +168,7 @@ def batch_query_cell_list_packed(
     """Query the batched cell list into a padded neighbor matrix (jit).
 
     Structure-of-arrays / packed-shift formulation (see the single-system
-    query for the TPU layout rationale); returns packed int32 shifts.
+    query for the layout rationale); returns packed int32 shifts.
     """
     n = positions.shape[0]
     dtype = positions.dtype

@@ -1,7 +1,7 @@
 # SPDX-License-Identifier: Apache-2.0
 """Brute-force O(N^2) neighbor list for batched (concatenated) systems.
 
-TPU-native counterpart of ``nvalchemiops/neighborlist/batch_naive.py``
+JAX counterpart of ``nvalchemiops/neighborlist/batch_naive.py``
 (kernels at batch_naive.py:37-210, wrapper at batch_naive.py:480-763).
 Systems are concatenated along the atom axis with ``batch_idx`` routing;
 the streaming engine masks cross-system pairs and Cartesianizes shifts with

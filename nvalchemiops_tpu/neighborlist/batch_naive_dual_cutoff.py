@@ -1,7 +1,7 @@
 # SPDX-License-Identifier: Apache-2.0
 """Dual-cutoff brute-force neighbor lists for batched systems.
 
-TPU-native counterpart of ``nvalchemiops/neighborlist/batch_naive_dual_cutoff.py``
+JAX counterpart of ``nvalchemiops/neighborlist/batch_naive_dual_cutoff.py``
 (kernels at batch_naive_dual_cutoff.py:36-297, wrapper at :592-1000).
 """
 

@@ -1,11 +1,12 @@
 # SPDX-License-Identifier: Apache-2.0
 """O(N) cell-list neighbor construction, single system.
 
-TPU-native counterpart of ``nvalchemiops/neighborlist/cell_list.py``.  The
+JAX counterpart of ``nvalchemiops/neighborlist/cell_list.py``.  The
 reference builds its cell list with atomic bin counters and fills the
 neighbor matrix with a per-thread half-space cell sweep + atomic symmetric
 insertion (cell_list.py:166-556).  This rebuild keeps the exact same public
-artifacts and output contract but re-architects both phases for TPU:
+artifacts and output contract but re-architects both phases without
+atomics:
 
 Build (sort-based, deterministic, scatter-free):
     fractional coords -> cell coords (+ periodic wrap bookkeeping) ->
@@ -273,8 +274,7 @@ def query_cell_list_packed(
     (cell_list.py:1108-1193).  ``search_radius`` / ``cell_capacity`` /
     ``max_neighbors`` are static (host-estimated) capacities.
 
-    Everything inside is structure-of-arrays 2-D: on TPU, arrays with a
-    trailing dimension of 3 are tile-padded 42x, so positions/shifts are
+    Everything inside is structure-of-arrays 2-D: positions/shifts are
     handled as separate x/y/z planes and the output shifts come back as one
     bit-packed int32 per pair (see neighbor_utils.pack_shifts).
 
@@ -434,8 +434,8 @@ def query_cell_list(
     """Query returning shifts in the requested layout.
 
     ``shift_format="aos"`` gives the reference-parity [N, K, 3] matrix;
-    ``"packed"`` keeps the TPU-native one-int32-per-pair encoding (use this
-    at scale — the AoS layout is tile-padded 42x on TPU).
+    ``"packed"`` keeps the one-int32-per-pair encoding (use this at
+    scale — a third of the AoS layout's memory).
     """
     nm, num, sh = query_cell_list_packed(
         positions, cutoff, cell, pbc, cell_list_data, search_radius,

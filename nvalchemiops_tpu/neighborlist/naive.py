@@ -1,7 +1,7 @@
 # SPDX-License-Identifier: Apache-2.0
 """Brute-force O(N^2) neighbor list, single system.
 
-TPU-native counterpart of ``nvalchemiops/neighborlist/naive.py`` (kernels at
+JAX counterpart of ``nvalchemiops/neighborlist/naive.py`` (kernels at
 naive.py:36-182, wrapper at naive.py:400-706).  Same output contract —
 padded ``neighbor_matrix`` / ``num_neighbors`` (+ ``neighbor_matrix_shifts``
 under PBC) or the COO/CSR conversion — produced by the scatter-free streaming

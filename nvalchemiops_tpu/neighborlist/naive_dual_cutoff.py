@@ -1,7 +1,7 @@
 # SPDX-License-Identifier: Apache-2.0
 """Dual-cutoff brute-force neighbor lists (single system).
 
-TPU-native counterpart of ``nvalchemiops/neighborlist/naive_dual_cutoff.py``
+JAX counterpart of ``nvalchemiops/neighborlist/naive_dual_cutoff.py``
 (kernels at naive_dual_cutoff.py:36-282, wrapper at :544-919): one distance
 pass fills two neighbor matrices for two cutoff radii — the common MLIP
 short-radius / long-radius pattern.  The streaming engine computes distances

@@ -1,10 +1,9 @@
 # SPDX-License-Identifier: Apache-2.0
-"""Shared neighbor-list utilities and the TPU packing primitive.
+"""Shared neighbor-list utilities and the top-k packing primitive.
 
-TPU-native counterpart of ``nvalchemiops/neighborlist/neighbor_utils.py``.
+JAX counterpart of ``nvalchemiops/neighborlist/neighbor_utils.py``.
 The reference fills padded neighbor matrices with ``wp.atomic_add`` row
-counters (neighbor_utils.py:70-147).  TPUs have no fast scatter atomics, so
-this module replaces that pattern with a deterministic, scatter-free
+counters (neighbor_utils.py:70-147).  This module replaces that pattern with a deterministic, scatter-free
 compaction primitive built on ``jax.lax.top_k``:
 
 - every candidate pair gets an integer *priority* (its position in a fixed
@@ -303,19 +302,18 @@ def prepare_batch_idx_ptr(batch_idx, batch_ptr, num_atoms: int):
 
 
 # ---------------------------------------------------------------------------
-# Packed shift encoding (TPU layout optimization)
+# Packed shift encoding
 # ---------------------------------------------------------------------------
 #
-# On TPU every array is tiled (8, 128) over its last two dimensions, so an
-# AoS shift matrix [N, K, 3] int32 is padded 42x in HBM (3 -> 128 lanes) —
-# infeasible at 100k-atom scale.  The TPU-native storage is one int32 per
-# pair with the three components bit-packed (10 bits each, range ±511,
-# far beyond any physical shift range):
+# An AoS shift matrix [N, K, 3] int32 carries a thin trailing dim and three
+# times the memory of one int32 per pair with the three components
+# bit-packed (10 bits each, range ±511, far beyond any physical shift
+# range):
 #
 #     packed = (sx + 512) << 20 | (sy + 512) << 10 | (sz + 512)
 #
 # All interaction kernels accept either layout; the packed one keeps every
-# array 2-D and perfectly tiled.
+# array 2-D.
 
 SHIFT_PACK_BIAS = 512
 SHIFT_PACK_MASK = 1023
@@ -354,7 +352,7 @@ def shifts_from_aos(aos):
 
 
 # ---------------------------------------------------------------------------
-# Gather-free bucket ranking (TPU layout optimization)
+# Gather-free bucket ranking
 # ---------------------------------------------------------------------------
 
 
@@ -362,8 +360,8 @@ def bucket_ranks(lin, num_buckets: int):
     """Per-element rank within its bucket, gather-free.
 
     The textbook formulation (argsort + ``starts[sorted_lin]`` +
-    ``lin[order]``) costs two N-element random gathers (~1e8 elem/s on TPU,
-    the slowest primitive we have).  Instead the (bucket, index) pair is
+    ``lin[order]``) costs two N-element random gathers.  Instead the
+    (bucket, index) pair is
     packed into one sort key — one sort, a boundary scan for the ranks, one
     scatter back to the original order.
 
@@ -381,9 +379,7 @@ def bucket_ranks(lin, num_buckets: int):
         order = key - sorted_lin * n
     else:
         # one multi-operand stable sort: carrying iota as a value gives
-        # sorted_lin AND order together with ZERO random gathers (the
-        # argsort + lin[order] formulation paid a ~5 ms 524k-element
-        # gather; measured build 29 ms vs ~14 at 524k atoms)
+        # sorted_lin AND order together with ZERO random gathers
         sorted_lin, order = jax.lax.sort(
             (lin, jnp.arange(n, dtype=INDEX_DTYPE)), num_keys=1,
             is_stable=True)

@@ -1,7 +1,7 @@
 # SPDX-License-Identifier: Apache-2.0
 """Unified neighbor-list dispatcher.
 
-TPU-native counterpart of ``nvalchemiops/neighborlist/neighborlist.py:41-310``:
+JAX counterpart of ``nvalchemiops/neighborlist/neighborlist.py:41-310``:
 one entry point that auto-selects the algorithm (N >= 5000 -> cell list,
 ``cutoff2`` -> dual cutoff, batch arguments -> batched variants) and forwards
 uniform keyword arguments.

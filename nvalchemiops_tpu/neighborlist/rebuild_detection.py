@@ -1,9 +1,9 @@
 # SPDX-License-Identifier: Apache-2.0
 """MD-loop rebuild-skip logic for cached neighbor structures.
 
-TPU-native counterpart of ``nvalchemiops/neighborlist/rebuild_detection.py``
+JAX counterpart of ``nvalchemiops/neighborlist/rebuild_detection.py``
 (kernels at rebuild_detection.py:36-250, public API at :336-633).  The
-reference launches early-exit Warp kernels; on TPU the whole check is a tiny
+reference launches early-exit Warp kernels; here the whole check is a tiny
 fused reduction, so these are plain jitted functions returning a boolean
 array (device-resident, ``torch.compile``-style graph friendly) plus
 host-``bool`` conveniences.

@@ -1,16 +1,16 @@
 # SPDX-License-Identifier: Apache-2.0
-"""Multi-chip scaling layer (TPU extension beyond the single-GPU reference).
+"""Multi-device scaling layer (an extension beyond the single-GPU reference).
 
 The reference library is single-process / single-GPU (SURVEY.md §2.8: no
-distributed runtime anywhere in the tree).  On TPU the natural scale-out is
-SPMD over a ``jax.sharding.Mesh``: batched systems shard over a data axis
-("dp") and atoms within systems over a model axis ("sp"), with XLA inserting
-the psum/all-gather collectives over ICI.  This package provides:
+distributed runtime anywhere in the tree).  Here the scale-out is SPMD over
+a ``jax.sharding.Mesh``: batched systems shard over a data axis ("dp") and
+atoms within systems over a model axis ("sp"), with XLA inserting the
+psum/all-gather collectives.  This package provides:
 
 - :mod:`~nvalchemiops_tpu.parallel.mlip` — a differentiable machine-learned
   interatomic potential (learnable electrostatics + Born-Mayer repulsion +
   DFT-D3-style dispersion) whose forward/training steps exercise the whole
-  library, single-chip or sharded.
+  library, on one device or sharded.
 - :func:`make_mesh` / sharding helpers.
 """
 

@@ -2,7 +2,7 @@
 """Batch-sharded PME: the uniform [B, n] batch pipeline over a device mesh.
 
 The reference is single-GPU (SURVEY.md §2.8 — no distribution anywhere);
-this is a TPU-native extension.  Per-system PME is embarrassingly
+this is an extension.  Per-system PME is embarrassingly
 parallel across the batch axis, so the sharding is a pure
 ``shard_map`` over system shards — each device runs the tile-windowed
 batch pipeline (:func:`~nvalchemiops_tpu.interactions.electrostatics.
@@ -14,15 +14,11 @@ large system instead.
 
 from __future__ import annotations
 
-from functools import partial
 
 import jax
 import jax.numpy as jnp
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
+from jax.sharding import Mesh, PartitionSpec as P
 
 __all__ = ["sharded_batch_pme_reciprocal"]
 
@@ -66,19 +62,11 @@ def sharded_batch_pme_reciprocal(mesh: Mesh, positions, charges, cells,
 
     spec = P(axis)
     out_specs = (spec, spec) if compute_forces else (spec,)
-    try:
-        fn = shard_map(
-            local, mesh=mesh,
-            in_specs=(spec, spec, spec, spec),
-            out_specs=out_specs,
-            check_vma=False,
-        )
-    except TypeError:  # older jax uses check_rep
-        fn = shard_map(
-            local, mesh=mesh,
-            in_specs=(spec, spec, spec, spec),
-            out_specs=out_specs,
-            check_rep=False,
-        )
+    fn = shard_map(
+        local, mesh=mesh,
+        in_specs=(spec, spec, spec, spec),
+        out_specs=out_specs,
+        check_vma=False,
+    )
     out = fn(positions, charges, cells, alphas)
     return out if compute_forces else out[0]

@@ -1,10 +1,10 @@
 # SPDX-License-Identifier: Apache-2.0
 """Spatial domain decomposition of the halo-grid sweep over a device mesh.
 
-At-scale TPU-native scaling for the real-space pipeline: the cell grid's z
-axis is sharded across devices (one z-slab of cells per chip); each device
-sweeps its own slab and the inter-slab pair interactions ride a ring of
-``lax.ppermute`` halo exchanges over ICI — the collective-based equivalent
+At-scale multi-device scaling for the real-space pipeline: the cell grid's
+z axis is sharded across devices (one z-slab of cells per device); each
+device sweeps its own slab and the inter-slab pair interactions ride a
+ring of ``lax.ppermute`` halo exchanges — the collective-based equivalent
 of the reference's single-GPU cell-list sweep (cell_list.py:372-556), which
 has no multi-device story at all.
 
@@ -399,7 +399,7 @@ def domain_dftd3_coulomb(mesh: Mesh, grid: AtomGrid, numbers, charges,
                          pbc=(True, True, True)):
     """Fused domain-decomposed D3 + real-space Coulomb (one sweep set).
 
-    The multi-chip counterpart of
+    The multi-device counterpart of
     :func:`...grid_d3.grid_dftd3_coulomb(engine="xla")`: the Coulomb pair
     body rides the D3 direct pass inside the same shard_map program, so
     the whole real-space force field pays ONE set of z-ring halo
@@ -695,11 +695,10 @@ def _domain_pme_impl(mesh: Mesh, positions, charges, cell, alpha,
     Unlike the hand-rolled slab sweeps above, PME shards best by *pure
     annotation*: the windowed spread/gather are batched per-tile
     contractions (embarrassingly parallel over the tile axis), the parity
-    fold is a cheap reduction, and the 3-D FFT of the whole mesh costs
-    ~0.3 ms — so we constrain the tile-batched arrays to ``P("z")`` and
-    let XLA's SPMD partitioner place the all-gathers/reduce-scatters on
-    ICI (the scaling-book recipe: pick a mesh, annotate, let the compiler
-    insert collectives).
+    fold is a cheap reduction, and the 3-D FFT of the whole mesh is small
+    — so we constrain the tile-batched arrays to ``P("z")`` and let XLA's
+    SPMD partitioner place the all-gathers/reduce-scatters (pick a mesh,
+    annotate, let the compiler insert collectives).
     """
     from jax.sharding import NamedSharding
     from nvalchemiops_tpu import spline_windowed as sw

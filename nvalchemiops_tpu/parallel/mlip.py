@@ -13,13 +13,14 @@ evaluated over periodic systems with full autodiff: forces are exact energy
 gradients, and the training step differentiates through everything
 (including coordination numbers and the C6 interpolation).
 
-Multi-chip: batched systems live in a padded [B, n, ...] layout; under a
+Multi-device: batched systems live in a padded [B, n, ...] layout; under a
 ``jax.sharding.Mesh`` with axes ``("dp", "sp")`` the batch shards over
 ``dp`` (data parallel over systems) and the atom axis over ``sp``
 (intra-system parallelism).  The pairwise energies contract atoms against
 atoms, so XLA's SPMD partitioner inserts the all-gather of the ``sp``-sharded
-positions and the psum of energies/gradients over ICI — the TPU-native
-replacement for what a NCCL-based design would hand-code.
+positions and the psum of energies/gradients, which XLA hands to the
+device interconnect (NCCL on GPUs) — what a hand-coded design would
+write out.
 """
 
 from __future__ import annotations
@@ -250,7 +251,7 @@ def sharded_train_step(mesh: Mesh, cutoff: float, lr: float = 1e-3):
 
     Parameters stay replicated; batch arrays arrive sharded (see
     :func:`shard_batch`).  XLA partitions the pairwise contractions and
-    inserts the ICI collectives (all-gather of sp-sharded positions inside
+    inserts the collectives (all-gather of sp-sharded positions inside
     each system, psum of loss/grads across the mesh).
     """
     replicated = NamedSharding(mesh, P())

@@ -1,7 +1,7 @@
 # SPDX-License-Identifier: Apache-2.0
 """B-spline mesh interpolation (spread / gather / gradients / deconvolution).
 
-TPU-native counterpart of ``nvalchemiops/spline.py`` (basis functions at
+JAX counterpart of ``nvalchemiops/spline.py`` (basis functions at
 spline.py:126-494, 12 Warp kernels at :496-1330, wrappers at :2581-3190).
 Conventions are identical:
 
@@ -31,13 +31,14 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from nvalchemiops_tpu.mathops.math import apply_mat3
+from nvalchemiops_tpu.mathops.math import apply_mat3, mesh_coordinates
 from nvalchemiops_tpu.types import INDEX_DTYPE
 
 __all__ = [
     "bspline_weight",
     "bspline_derivative",
     "compute_fractional_coords",
+    "stencil_weights",
     "bspline_grid_offset",
     "bspline_weight_3d",
     "bspline_weight_gradient_3d",
@@ -171,6 +172,47 @@ def _spline_u(theta, offset, order: int):
     return 0.5 * order + theta - jnp.asarray(offset).astype(theta.dtype)
 
 
+def stencil_weights(theta, order: int):
+    """B-spline weights and d/du derivatives of the ``order`` stencil points.
+
+    ``theta`` ``[...]`` is the fractional mesh coordinate in ``[0, 1)``;
+    point ``i`` sits at grid offset ``i + floor(theta - (order-2)/2)`` (the
+    convention of :func:`bspline_grid_offset`) with spline parameter
+    ``u_i = (order - 1 - i) + t``.  The basis pieces are evaluated in the
+    local ``t`` (``theta``, or ``theta -+ 0.5`` for odd orders) in a
+    cancellation-free form: the ``u`` polynomials of :func:`bspline_weight`
+    cancel terms of size ~200 near ``u = 3`` and lose ~5 digits in float32.
+    Returns ``(w, dw)`` of shape ``[..., order]`` (point axis last).
+    """
+    theta = jnp.asarray(theta)
+    if order % 2:
+        t = jnp.where(theta < 0.5, theta + 0.5, theta - 0.5)
+    else:
+        t = theta
+    s = 1.0 - t
+    if order == 1:
+        pieces = [(jnp.ones_like(t), jnp.zeros_like(t))]
+    elif order == 2:
+        pieces = [(t, jnp.ones_like(t)), (s, -jnp.ones_like(t))]
+    elif order == 3:
+        pieces = [(0.5 * t * t, t),
+                  (0.75 - (t - 0.5) ** 2, 1.0 - 2.0 * t),
+                  (0.5 * s * s, -s)]
+    elif order == 4:
+        pieces = [(t * t * t / 6.0, 0.5 * t * t),
+                  ((1.0 + t * (3.0 + t * (3.0 - 3.0 * t))) / 6.0,
+                   0.5 * (1.0 + 3.0 * t) * s),
+                  ((4.0 + t * t * (3.0 * t - 6.0)) / 6.0,
+                   0.5 * t * (3.0 * t - 4.0)),
+                  (s * s * s / 6.0, -0.5 * s * s)]
+    else:
+        raise ValueError(f"spline order must be 1-4, got {order}")
+    # point i uses piece order - 1 - i
+    w = jnp.stack([pieces[order - 1 - i][0] for i in range(order)], axis=-1)
+    dw = jnp.stack([pieces[order - 1 - i][1] for i in range(order)], axis=-1)
+    return w, dw
+
+
 def bspline_weight_3d(theta, offset, order: int):
     """Separable 3-D spline weight ``M(u_x) M(u_y) M(u_z)``
     (reference: spline.py:350-408); zero outside ``u in [0, order)``."""
@@ -208,14 +250,10 @@ def wrap_grid_index(idx, dim):
 # ---------------------------------------------------------------------------
 
 
-def _cell_inverse_per_atom(positions, cell, batch_idx, cell_inv_t=None):
+def _cell_inverse_per_atom(positions, cell, batch_idx):
     """Fractional coordinates s = r @ cell^-1 per atom."""
     dtype = positions.dtype
-    if cell_inv_t is not None:
-        inv_t = jnp.asarray(cell_inv_t, dtype=dtype).reshape(-1, 3, 3)
-        inv = jnp.swapaxes(inv_t, -1, -2)
-    else:
-        inv = jnp.linalg.inv(jnp.asarray(cell, dtype=dtype).reshape(-1, 3, 3))
+    inv = jnp.linalg.inv(jnp.asarray(cell, dtype=dtype).reshape(-1, 3, 3))
     if batch_idx is not None and inv.shape[0] > 1:
         inv_a = inv[batch_idx.astype(INDEX_DTYPE)]
         frac = sum(positions[:, d:d + 1] * inv_a[:, d] for d in range(3))
@@ -223,7 +261,7 @@ def _cell_inverse_per_atom(positions, cell, batch_idx, cell_inv_t=None):
     return apply_mat3(positions, inv[0]), inv
 
 
-def _stencil(positions, cell, mesh_dims, order: int, batch_idx, cell_inv_t=None):
+def _stencil(positions, cell, mesh_dims, order: int, batch_idx):
     """Per-atom separable stencil.
 
     Returns (gidx [N,3,order] wrapped int indices, w [N,3,order] weights,
@@ -231,18 +269,21 @@ def _stencil(positions, cell, mesh_dims, order: int, batch_idx, cell_inv_t=None)
     """
     dtype = positions.dtype
     dims = jnp.asarray(mesh_dims, dtype=INDEX_DTYPE)
-    frac, inv = _cell_inverse_per_atom(positions, cell, batch_idx, cell_inv_t)
-    mesh_coord = frac * dims.astype(dtype)  # [N, 3]
-    base = jnp.floor(mesh_coord)
-    theta = mesh_coord - base  # in [0, 1)
-    base = base.astype(INDEX_DTYPE)
+    cell_b = jnp.asarray(cell, dtype=dtype).reshape(-1, 3, 3)
+    inv = jnp.linalg.inv(cell_b)
+    if batch_idx is not None and inv.shape[0] > 1:
+        b_of = batch_idx.astype(INDEX_DTYPE)
+        cell_a, inv_a = cell_b[b_of], inv[b_of]
+    else:
+        cell_a, inv_a = cell_b[0], inv[0]
+    base, theta = mesh_coordinates(positions, tuple(mesh_dims), cell=cell_a,
+                                   inv=inv_a)
 
     i = jnp.arange(order, dtype=INDEX_DTYPE)  # [order]
     offset_start = jnp.floor(theta - (order - 2) * 0.5).astype(INDEX_DTYPE)  # [N,3]
     offset = i[None, None, :] + offset_start[..., None]  # [N,3,order]
-    u = order * 0.5 + theta[..., None] - offset.astype(dtype)
-    w = bspline_weight(u, order)
-    dw = bspline_derivative(u, order) * dims.astype(dtype)[None, :, None]
+    w, dw = stencil_weights(theta, order)
+    dw = dw * dims.astype(dtype)[None, :, None]
 
     g = base[..., None] + offset
     gidx = jnp.mod(g, dims[None, :, None])  # periodic wrap
@@ -265,19 +306,17 @@ def _flat_indices(gidx, mesh_dims, batch_idx, num_systems):
 
 
 # ---------------------------------------------------------------------------
-# Separable one-hot matmul formulation (TPU fast path)
+# Separable one-hot matmul formulation
 # ---------------------------------------------------------------------------
 #
-# Scatter/gather at one element per (atom, stencil point) runs at ~1e8
-# elements/s on TPU — 50 ms for 100k atoms at order 4.  The B-spline stencil
-# is separable, so spreading is instead expressed as three dense per-axis
-# weight matrices contracted on the MXU:
+# Instead of a scatter/gather of one element per (atom, stencil point), the
+# separable B-spline stencil is expressed as three dense per-axis weight
+# matrices contracted as matmuls:
 #
 #   S_x[n, gx] = sum_i w_x[n, i] * [gx == gidx_x[n, i]]      (dense [N, nx])
 #   mesh[x, y, z] = sum_n (q S_x)[n, x] S_y[n, y] S_z[n, z]
 #
-# evaluated as chunked matmuls (~N * nx * ny * nz flops — sub-ms at 100k
-# atoms on a 64^3 mesh).  Interpolation (gather) and gradients are the same
+# evaluated as chunked matmuls (~N * nx * ny * nz flops).  Interpolation (gather) and gradients are the same
 # contractions transposed / with derivative weights.
 
 
@@ -324,9 +363,7 @@ def dense_spread_single(positions, values, cell, mesh_dims,
     Bypasses the tile-windowed auto-select inside :func:`spline_spread`:
     for small meshes under vmap (the batched-PME shape) the windowed
     path's per-tile [cap, W^3] expansion dominates, while this is one
-    [n, ny*nz] intermediate + one MXU contraction — measured 1.3 ms for
-    64 x 2000 atoms at 32^3 vs 7.6 ms windowed
-    (benchmarks/r4_densespread_probe.py, round 4).
+    [n, ny*nz] intermediate + one contraction.
     """
     mats, _ = _stencil_axis_matrices(positions, cell, tuple(mesh_dims),
                                      spline_order, None)
@@ -356,22 +393,8 @@ def dense_gather_gradient_single(positions, charges, mesh, cell,
     return apply_mat3(f_frac, inv[0].T)
 
 
-def _use_pallas_gather(mesh) -> bool:
-    """Pallas gather pays off when the [chunk, ny*nz] projection would
-    otherwise round-trip HBM (big meshes) and we are on a real TPU backend."""
-    return (
-        jax.default_backend() not in ("cpu",)
-        and mesh.size >= 128 * 128 * 128
-    )
-
-
 def _separable_gather(mesh, sx, sy, sz, chunk: int = 2048):
     """out[n] = sum_xyz mesh[x,y,z] sx[n,x] sy[n,y] sz[n,z] via chunked matmul."""
-    if _use_pallas_gather(mesh):
-        from nvalchemiops_tpu.pallas.spread import pallas_separable_gather
-
-        return pallas_separable_gather(mesh, sx, sy, sz).astype(mesh.dtype)
-
     n = sx.shape[0]
     nx, ny, nz = sx.shape[1], sy.shape[1], sz.shape[1]
     num_chunks = max(1, -(-n // chunk))
@@ -582,9 +605,8 @@ def _gather_impl(positions, mesh, charges, cell, batch_idx, spline_order, num_sy
             return jax.lax.cond(tiles.counts_max <= cap, fast, dense, None)
         return dense(None)
 
-    # per-plane flattening: gathering arrays with a small trailing dim (3 or
-    # C) is tile-padded 42x on TPU, so vector/channel meshes are gathered one
-    # scalar plane at a time.
+    # per-plane flattening: vector/channel meshes are gathered one scalar
+    # plane at a time (no gathers of arrays with a small trailing dim).
     if mode == "channels":
         mesh_b = mesh if mesh.ndim == 5 else mesh[None]  # [B, C, nx, ny, nz]
         c = mesh_b.shape[1]

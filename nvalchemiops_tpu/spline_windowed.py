@@ -1,9 +1,9 @@
 # SPDX-License-Identifier: Apache-2.0
-"""Spatially-windowed B-spline spread/gather: the at-scale TPU fast path.
+"""Spatially-windowed B-spline spread/gather: the at-scale path.
 
 The dense separable formulation (spline.py:_separable_spread, reference
 kernels spline.py:496-760) contracts every atom against *full* mesh axes —
-``[N, nx] x [N, ny*nz]`` — which costs ``N * nx * ny * nz`` MXU flops (464
+``[N, nx] x [N, ny*nz]`` — which costs ``N * nx * ny * nz`` matmul flops (464
 GFLOP at 110k atoms on a 128^3 mesh) for what is logically an order^3 = 64
 point stencil per atom.  This module exploits spatial locality instead:
 
@@ -17,15 +17,15 @@ point stencil per atom.  This module exploits spatial locality instead:
    weight matrices are tiny ``[cap, W]`` blocks instead of ``[N, n_axis]``
    — all six (weights + derivatives) live in one ``[ntiles, cap, 6W]``
    buffer filled by a single slot->atom row gather.
-3. **Per-tile separable contraction** on the MXU:
+3. **Per-tile separable contraction** as batched matmuls:
    ``window[t, wz, (wy,wx)] = qS_z[t]^T ... (S_y (x) S_x)[t]`` — ~1 GFLOP
    total at the same size, a 450x flop reduction.  The ``(x)`` products are
-   built with constant one-hot matmuls so no intermediate ever carries a
-   TPU-hostile trailing dim (the (8,128) tiling pads a trailing 12 by 10x).
+   built with constant one-hot matmuls so no intermediate carries a thin
+   trailing dim of 12.
 4. **Parity fold**: windows (stride T, width W <= 2T) overlap their
    neighbors, so even/odd tiles fold with pure pad/reshape/adds (no
    scatter); the fold chain is ordered z -> y -> x so every relayout keeps
-   the last two dims fat (>= 128 lanes).
+   the last two dims fat.
 5. **Gather** extracts windows with whole-slab ``take`` (read-only overlap
    is fine) through the mirror-image chain; the energy gather and the three
    force-gradient gathers share the extraction, the tile structure, and the
@@ -34,7 +34,7 @@ point stencil per atom.  This module exploits spatial locality instead:
    separate vec3 gather; reference pme.py:1450-1477).
 
 All ops are dense XLA (bucket sort, row gathers, matmuls, reshapes): the
-path jits, differentiates, and runs identically on CPU and TPU.
+path jits, differentiates, and runs identically on every backend.
 """
 
 from __future__ import annotations
@@ -45,9 +45,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from nvalchemiops_tpu.mathops.math import apply_mat3
+from nvalchemiops_tpu.mathops.math import mesh_coordinates
 from nvalchemiops_tpu.types import INDEX_DTYPE
-from nvalchemiops_tpu.spline import bspline_weight, bspline_derivative
+from nvalchemiops_tpu.spline import stencil_weights
 
 __all__ = [
     "windowed_applicable",
@@ -94,19 +94,12 @@ def observed_tile_capacity(positions, cell, mesh_dims, tile: int = 8,
     """
     dtype = positions.dtype
     nx, ny, nz = (int(d) for d in mesh_dims)
-    dims_f = jnp.asarray([nx, ny, nz], dtype)
-    inv = jnp.linalg.inv(jnp.asarray(cell, dtype=dtype).reshape(3, 3))
+    cell = jnp.asarray(cell, dtype=dtype).reshape(3, 3)
 
     @jax.jit
     def occ():
-        mc = apply_mat3(positions, inv) * dims_f
-        mc = mc - jnp.floor(mc / dims_f) * dims_f
-        mc = jnp.where(mc >= dims_f, 0.0, mc)
-        theta = mc - jnp.floor(mc)
-        base = jnp.floor(mc).astype(INDEX_DTYPE)
-        offset_start = jnp.floor(
-            theta - (spline_order - 2) * 0.5).astype(INDEX_DTYPE)
-        del offset_start  # base tile is independent of the stencil start
+        # the base tile is independent of the stencil start (spline order)
+        base, _ = mesh_coordinates(positions, (nx, ny, nz), cell=cell)
         t = base // tile
         ntx, nty, ntz = nx // tile, ny // tile, nz // tile
         lin = (t[:, 0] * nty + t[:, 1]) * ntz + t[:, 2]
@@ -116,8 +109,7 @@ def observed_tile_capacity(positions, cell, mesh_dims, tile: int = 8,
     observed = int(jax.device_get(occ()))
     # headroom matters: a razor-thin cap (observed+1) lets small position
     # perturbations overflow one tile and trip the expensive dense
-    # fallback (measured 18.7 ms vs 11.9 at cap=observed+1 on the bench
-    # crystal); +2 slots then round to 8, at least +5%
+    # fallback; +2 slots then round to 8, at least +5%
     return max(int(np.ceil((observed + 2) / 8)) * 8,
                int(np.ceil(observed * 1.05 / 8)) * 8, 8)
 
@@ -126,7 +118,7 @@ def observed_tile_capacity(positions, cell, mesh_dims, tile: int = 8,
 class MeshTiles:
     """Tile-binned separable stencil.
 
-    ``smat`` holds the per-slot axis matrices side by side on the lane axis:
+    ``smat`` holds the per-slot axis matrices side by side on the last axis:
     ``[ntiles, cap, k*W]`` with blocks (Sx, Sy, Sz[, dSx, dSy, dSz]).
     ``aid`` is the slot -> atom map ([ntiles*cap], empty slots -> n): the
     gather-form dual of ``flat_slot`` (atom -> slot), used to build slot
@@ -169,28 +161,23 @@ class MeshTiles:
                    order=order, has_grad=has_grad)
 
 
-def _stencil_rows(positions, inv, mesh_dims, order: int, tile: int,
+def _stencil_rows(positions, cell, inv, mesh_dims, order: int, tile: int,
                   need_grad: bool):
     """Per-atom packed axis-matrix rows + linear tile ids (shared by
-    :func:`build_mesh_tiles` and :func:`refresh_mesh_tiles`)."""
+    :func:`build_mesh_tiles` and :func:`refresh_mesh_tiles`).
+
+    ``cell`` may be None (cached ``inv`` only, used unrefined)."""
     dtype = positions.dtype
     n = positions.shape[0]
     nx, ny, nz = (int(d) for d in mesh_dims)
     w_win = tile + _HALO_LEFT + _HALO_RIGHT
     dims_f = jnp.asarray([nx, ny, nz], dtype)
 
-    frac = apply_mat3(positions, inv)
-    mc = frac * dims_f
-    mc = mc - jnp.floor(mc / dims_f) * dims_f  # wrap into [0, dims)
-    mc = jnp.where(mc >= dims_f, 0.0, mc)      # float-rounding seam guard
-    base_f = jnp.floor(mc)
-    theta = mc - base_f
-    base = base_f.astype(INDEX_DTYPE)
+    base, theta = mesh_coordinates(positions, (nx, ny, nz), cell=cell,
+                                   inv=inv)
 
-    i = jnp.arange(order, dtype=INDEX_DTYPE)
     offset_start = jnp.floor(theta - (order - 2) * 0.5).astype(INDEX_DTYPE)
-    u = order * 0.5 + theta[..., None] - (i[None, None, :] + offset_start[..., None]).astype(dtype)
-    w = bspline_weight(u, order)                              # [N, 3, order]
+    w, dw = stencil_weights(theta, order)                     # [N, 3, order]
 
     tile_idx = base // tile                                    # [N, 3]
     # window-local index of stencil point 0 (window origin tile*T - 1)
@@ -201,7 +188,7 @@ def _stencil_rows(positions, inv, mesh_dims, order: int, tile: int,
 
     # one-hot local axis matrices packed to [N, k*W]: per axis, the
     # (weights x window-start) outer product is built with constant
-    # one-hot expanders (rule 6) and routed to its banded columns by one
+    # one-hot expanders and routed to its banded columns by one
     # constant [A*S, kw] matmul — 3 x ~6 output-sized passes instead of
     # the 24-iteration compare-select loop (~96 passes).  HIGHEST keeps
     # the 0/1 selections exact in f32.
@@ -210,7 +197,7 @@ def _stencil_rows(positions, inv, mesh_dims, order: int, tile: int,
     n_start = w_win - order + 1          # window-local stencil starts
     n_vals = 2 * order if need_grad else order
     if need_grad:
-        dw = bspline_derivative(u, order) * dims_f[None, :, None]
+        dw = dw * dims_f[None, :, None]
 
     r_vals = np.zeros((n_vals, n_vals * n_start), np.float32)
     r_start = np.zeros((n_start, n_vals * n_start), np.float32)
@@ -245,18 +232,15 @@ def _stencil_rows(positions, inv, mesh_dims, order: int, tile: int,
 def _use_slot_gather(n: int, ntiles: int, cap: int) -> bool:
     """Static heuristic: build MESH-TILE slot arrays by gather or scatter.
 
-    Round-4 finding (the round-3 6% headline regression, VERDICT weak
-    #3): the gather form — proven for the *atom grid's* property planes
-    (grid.use_slot_gather, 524k: 3.7 vs 20.9 ms) — LOSES for the spline
-    mesh tiles at every measured config: 64x2000 batched PME 2x slower
-    (pme_batch_engine_probe) and the 110k/128^3 headline PME E+F 11.9 ms
-    gather vs 10.0 scatter (benchmarks/r4_slotgather_probe.py).  The
-    tile build's row scatter lands mostly-coalesced (atoms are mesh-
-    sorted), unlike the grid build's.  Scatter everywhere until a config
-    is measured where gather wins.
+    The gather form that serves the *atom grid's* property planes
+    (grid.use_slot_gather) lost to the scatter for the spline mesh tiles
+    at every configuration measured on an earlier accelerator: the tile
+    build's row scatter lands mostly-coalesced (atoms are mesh-sorted),
+    unlike the grid build's.  Scatter everywhere until a configuration
+    is measured on the GPU where gather wins.
 
-    ``NVALCHEMIOPS_SLOT_GATHER=0|1`` (trace-time, probe-only) forces the
-    answer, as in ``grid.use_slot_gather``.
+    ``NVALCHEMIOPS_SLOT_GATHER=0|1`` (trace-time) forces the answer, as
+    in ``grid.use_slot_gather``.
     """
     env = os.environ.get("NVALCHEMIOPS_SLOT_GATHER")
     if env in ("0", "1"):
@@ -270,9 +254,8 @@ def _slot_maps(lin, ntiles: int, cap: int):
     Returns ``(flat_slot [N], aid [ntiles*cap], counts_max)``:
     atom -> slot (overflow -> trash ``ntiles*cap``) and slot -> atom
     (empty -> ``n``).  The aid direction turns every slot-array build
-    into a row gather (same economics as grid.py's gather-form build:
-    random-destination row scatters measured 5-6x slower on chip,
-    benchmarks/scatter_strategy_probe.py / prop_plane_probe.py).
+    into a row gather (same reasoning as grid.py's gather-form build: no
+    random-destination row scatter).
     """
     n = lin.shape[0]
     iota = jnp.arange(n, dtype=INDEX_DTYPE)
@@ -287,8 +270,7 @@ def _slot_maps(lin, ntiles: int, cap: int):
     flat_slot = jnp.zeros((n,), INDEX_DTYPE).at[order].set(
         jnp.where(rank_sorted >= cap, ntiles * cap,
                   sorted_lin * cap + rank_sorted))
-    # histogram + exclusive cumsum, not searchsorted (19.4 vs 3.4 ms for
-    # 149k buckets at 512k atoms on chip — benchmarks/build45_stage_probe)
+    # histogram + exclusive cumsum (one pass), not searchsorted
     counts = jnp.zeros((ntiles,), INDEX_DTYPE).at[lin.astype(INDEX_DTYPE)
                                                   ].add(1)
     starts = jnp.cumsum(counts) - counts
@@ -308,8 +290,9 @@ def build_mesh_tiles(positions, cell, mesh_dims, order: int, cap: int,
     """
     dtype = positions.dtype
     nx, ny, nz = (int(d) for d in mesh_dims)
-    inv = jnp.linalg.inv(jnp.asarray(cell, dtype=dtype).reshape(3, 3))
-    rows, lin = _stencil_rows(positions, inv, mesh_dims, order, tile,
+    cell = jnp.asarray(cell, dtype=dtype).reshape(3, 3)
+    inv = jnp.linalg.inv(cell)
+    rows, lin = _stencil_rows(positions, cell, inv, mesh_dims, order, tile,
                               need_grad)
     ntiles = (nx // tile) * (ny // tile) * (nz // tile)
     flat_slot, aid, counts_max = _slot_maps(lin, ntiles, cap)
@@ -340,13 +323,12 @@ def mesh_tiles_need_rebuild(tiles: MeshTiles, positions, cell=None):
     nx, ny, nz = tiles.mesh_dims
     tile, cap = tiles.tile, tiles.cap
     dtype = positions.dtype
-    inv = (tiles.inv if cell is None
-           else jnp.linalg.inv(jnp.asarray(cell, dtype).reshape(3, 3)))
-    dims_f = jnp.asarray([nx, ny, nz], dtype)
-    mc = apply_mat3(positions, inv) * dims_f
-    mc = mc - jnp.floor(mc / dims_f) * dims_f
-    mc = jnp.where(mc >= dims_f, 0.0, mc)
-    t = jnp.floor(mc).astype(INDEX_DTYPE) // tile
+    # the same coordinates refresh_mesh_tiles computes for this cell
+    if cell is not None:
+        cell = jnp.asarray(cell, dtype).reshape(3, 3)
+    base, _ = mesh_coordinates(positions, (nx, ny, nz), cell=cell,
+                               inv=tiles.inv if cell is None else None)
+    t = base // tile
     nty, ntz = ny // tile, nz // tile
     lin = (t[:, 0] * nty + t[:, 1]) * ntz + t[:, 2]
     ntiles = (nx // tile) * nty * ntz
@@ -368,10 +350,11 @@ def refresh_mesh_tiles(tiles: MeshTiles, positions, cell=None) -> MeshTiles:
     dtype = positions.dtype
     nx, ny, nz = tiles.mesh_dims
     tile, cap = tiles.tile, tiles.cap
-    inv = (tiles.inv if cell is None
-           else jnp.linalg.inv(jnp.asarray(cell, dtype).reshape(3, 3)))
-    rows, _ = _stencil_rows(positions, inv, tiles.mesh_dims, tiles.order,
-                            tile, tiles.has_grad)
+    if cell is not None:
+        cell = jnp.asarray(cell, dtype).reshape(3, 3)
+    inv = tiles.inv if cell is None else jnp.linalg.inv(cell)
+    rows, _ = _stencil_rows(positions, cell, inv, tiles.mesh_dims,
+                            tiles.order, tile, tiles.has_grad)
     ntiles = (nx // tile) * (ny // tile) * (nz // tile)
     if _use_slot_gather(rows.shape[0], ntiles, cap):
         rows_padded = jnp.concatenate(
@@ -444,14 +427,8 @@ def _tyx(tiles: MeshTiles, iy: int, ix: int):
     return _axis_expanded(tiles, iy, ry) * _axis_expanded(tiles, ix, rx)
 
 
-def windowed_spread(tiles: MeshTiles, values, engine: str = "xla"):
-    """mesh[x,y,z] = sum_n values[n] S_x S_y S_z via per-tile contraction.
-
-    ``engine="pallas"`` runs the per-tile contraction in a fused Mosaic
-    kernel (pallas/windowed_gather.py:pallas_spread_windows): the
-    [ntiles, cap, W*W] tensor-product intermediate (~113 MB at 128^3/110k)
-    never reaches HBM.
-    """
+def windowed_spread(tiles: MeshTiles, values):
+    """mesh[x,y,z] = sum_n values[n] S_x S_y S_z via per-tile contraction."""
     nx, ny, nz = tiles.mesh_dims
     tile, cap, w_win = tiles.tile, tiles.cap, tiles.w_win
     ntx, nty, ntz = nx // tile, ny // tile, nz // tile
@@ -465,21 +442,12 @@ def windowed_spread(tiles: MeshTiles, values, engine: str = "xla"):
         qbuf = jnp.zeros((ntiles * cap + 1,), values.dtype)
         q_t = qbuf.at[tiles.flat_slot].set(values)[:-1].reshape(ntiles, cap)
 
-    if engine == "pallas":
-        from nvalchemiops_tpu.pallas.windowed_gather import (
-            pallas_spread_windows,
-        )
-
-        windows = pallas_spread_windows(tiles, q_t)
-    else:
-        qsz = q_t[..., None] * tiles.axis_mat(2)
-        tyx = _tyx(tiles, 1, 0)
-        # full f32: a bf16-pass contraction of the spline weights costs
-        # ~4e-3 relative mesh error (measured 3e-3 end-to-end PME energy
-        # error).  HIGHEST: measured only 0.6 ms over HIGH at 128^3/110k
-        # for 10x tighter end accuracy (PME E 4e-6 vs 2e-5 relative)
-        windows = jnp.einsum("tcz,tcm->tzm", qsz, tyx,
-                             precision=jax.lax.Precision.HIGHEST)
+    qsz = q_t[..., None] * tiles.axis_mat(2)
+    tyx = _tyx(tiles, 1, 0)
+    # full f32: a reduced-precision contraction of the spline weights
+    # costs ~4e-3 relative mesh error (3e-3 end-to-end PME energy error)
+    windows = jnp.einsum("tcz,tcm->tzm", qsz, tyx,
+                         precision=jax.lax.Precision.HIGHEST)
 
     # fold chain ordered z -> y -> x; every relayout keeps fat trailing dims
     a = windows.reshape(ntx, nty, ntz, w_win, w_win * w_win)
@@ -521,16 +489,13 @@ def windowed_gather(tiles: MeshTiles, mesh, with_gradient: bool = False,
     gradient components are d/d(fractional coord) scaled by mesh dims (like
     spline._stencil's ``dw``); rotate with ``tiles.inv`` for Cartesian.
 
-    ``order`` picks the contraction order (design-guide rule 15):
+    ``order`` picks the contraction order:
 
     - ``"m"`` (default) contracts the fat W*W axis first (``Q[t,c,z]``);
-      the thin [t, cap, W] outputs are the only thin arrays.  Measured
-      faster for BOTH paths at 128^3/110k: E-gather 3.60 vs 4.88 ms,
-      E+F gather 10.18 vs 10.91 ms incl binning
-      (benchmarks/gather_order_probe.py) — design-guide rule 15.
+      the thin [t, cap, W] outputs are the only thin arrays.
     - ``"z"`` contracts z first (``A[t,c,m]``, fat) and shares A across
       values/gx/gy (and Ad for gz); fewer matmuls but every elementwise
-      reduce then runs on 10x more lanes — measured slower.
+      reduce then runs on 10x more elements.
     """
     win = _extract_windows(mesh, tiles.tile)             # [t, W, W*W]
     if order is None:
@@ -540,9 +505,8 @@ def windowed_gather(tiles: MeshTiles, mesh, with_gradient: bool = False,
         return plane.reshape(-1)[jnp.minimum(tiles.flat_slot, plane.size - 1)]
 
     def per_atom4(planes):
-        # ONE random per-atom gather for all outputs: each 110k-element
-        # flat gather costs ~1 ms at 1e8 elem/s (rule 7); gathering [S, 4]
-        # rows costs the same as [S] scalars.
+        # ONE random per-atom gather of [S, 4] rows for all outputs
+        # instead of four scalar gathers
         stacked = jnp.stack(planes, axis=-1).reshape(-1, len(planes))
         rows = stacked[jnp.minimum(tiles.flat_slot, stacked.shape[0] - 1)]
         return rows[:, 0], rows[:, 1:]

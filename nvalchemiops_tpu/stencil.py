@@ -13,23 +13,22 @@ this engine removes the capacity axis entirely:
   columns so any (dy, dx) cell offset is a single static column shift);
 - the half-space sweep pairs the plane against ``(2R+1)^3 / 2`` shifted
   slices of itself — one candidate per slot, no ``[cap, W]`` blocks, no
-  reductions, >=99% lane utilization at typical dims;
+  reductions;
 - empty voxels are parked far away at build time (displacement validity,
   grid.py:DISPLACE) so the ``d^2 < cutoff^2`` test alone excludes them.
 
 At 9 A cutoff with 3 A voxels the candidate slack drops from the row
-sweep's ~7-12x to the ~3x cube-vs-sphere floor, and (because pair math is
-op-count-bound, docs/tpu_kernel_design.md rule 13) every capacity-free
-pass runs proportionally faster.
+sweep's ~7-12x to the ~3x cube-vs-sphere floor, so an op-count-bound
+pair pass does proportionally less work.
 
-The MXU-heavy D3 interpolation pass keeps the row layout (its bilinear
+The matmul-heavy D3 interpolation pass keeps the row layout (its bilinear
 C6 matmuls need operand reuse across a candidate window, which the
 one-candidate-per-slot stencil cannot feed); see
 interactions/dispersion/grid_d3.py for the hybrid wiring.
 
 Reference counterpart: none — the reference's cell list (cell_list.py)
 covers this regime with cap >= 1 per-thread loops; the voxel formulation
-exists because TPUs pay for capacity padding where CUDA threads do not.
+removes the capacity padding that a dense per-cell layout pays.
 """
 
 from __future__ import annotations
@@ -134,9 +133,8 @@ def gather_from_stencil(sg: StencilGrid, plane):
 
 
 def gather_rows_from_stencil(sg: StencilGrid, planes):
-    """One [voxels, k] row gather for k interior planes (rule 7: separate
-    per-atom gathers cost ~1 ms each at 110k atoms; one stacked row gather
-    ~0.3 ms total — benchmarks/multi_gather_probe.py)."""
+    """One [voxels, k] row gather for k interior planes (in place of k
+    separate per-atom gathers)."""
     stacked = jnp.stack([p.reshape(-1) for p in planes], axis=-1)
     rows = stacked[sg.flat_idx]
     return tuple(rows[..., i] for i in range(len(planes)))
@@ -358,7 +356,7 @@ def stencil_reduce_sym(sg: StencilGrid, kernel, init, num_ext_acc: int,
     # dx variants of one (dz, dy) share their candidate rows, so looping
     # them inside one delta-fold keeps the whole group a single XLA fusion
     # cluster and one accumulator update — 171 tiny kernels collapse to
-    # ~25 big ones (measured 9.8 -> see benchmarks/stencil_probe.py).
+    # ~25 big ones.
     zy_offsets = [(0, 0)] + [
         (dz, dy)
         for dz in range(-rz, rz + 1)
@@ -453,33 +451,121 @@ def _interior_of_ext(sg: StencilGrid, ext_plane):
 # ---------------------------------------------------------------------------
 
 
+_ENGINES = ("xla", "stack", "fuse")
+
+
 def _resolve_engine(engine):
+    """``None`` -> the half-space fold sweep; unknown names raise."""
     if engine is None:
-        # the XLA half-space fold sweep is granularity-bound on TPU (~48 us
-        # per offset step, serialized through the carry); the unmaterialized
-        # full-space add-tree replaces it with one wide fusion (measured at
-        # 110k/9A: CN 4.3 ms vs 8.1 row / 6.2 stack; chain 7.4; coulomb 7.8).
-        # Elsewhere (CPU tests) the half-space fold does half the flops.
-        return "fuse" if jax.default_backend() == "tpu" else "xla"
+        return "xla"
+    if engine not in _ENGINES:
+        raise ValueError(
+            f"unknown stencil engine {engine!r}; expected one of {_ENGINES}")
     return engine
+
+
+def _full_offsets(radius):
+    rz, ry, rx = radius
+    return [
+        (dz, dy, dx)
+        for dz in range(-rz, rz + 1)
+        for dy in range(-ry, ry + 1)
+        for dx in range(-rx, rx + 1)
+        if (dz, dy, dx) != (0, 0, 0)
+    ]
+
+
+# Full-space pair bodies (same math as the half-space kernels below;
+# energies split half to each side, forces/CN accumulate per own atom)
+
+
+def _geom(own, cand, cutoff_sq):
+    dx = cand["px"] - own["px"]
+    dy = cand["py"] - own["py"]
+    dz = cand["pz"] - own["pz"]
+    d2 = dx * dx + dy * dy + dz * dz
+    ok = (d2 < cutoff_sq) & (d2 > 1e-20)
+    r2m = jnp.where(ok, d2, 1.0)
+    inv_r = jax.lax.rsqrt(r2m)
+    return ok, inv_r, r2m, dx, dy, dz
+
+
+def _coulomb_body(cutoff, alpha):
+    """Per-slot (damped-)Coulomb body for the fullspace stencil sweep.
+
+    Returns ``body(own, cand) -> (e_pair, fx, fy, fz)`` matching
+    the full-space sweeps' contract; same math as
+    ``grid._coulomb_impl`` (reference: electrostatics/coulomb.py kernels).
+    """
+    cutoff_sq = float(cutoff) ** 2
+    alpha_t = float(alpha)
+    two_over_sqrt_pi = 1.1283791670955126
+
+    def body(own, cand):
+        ok, inv_r, r2m, dx, dy, dz = _geom(own, cand, cutoff_sq)
+        qq = own["q"] * cand["q"]
+        if alpha_t > 0:
+            ar = alpha_t * (r2m * inv_r)
+            erfc_ar = erfc_approx(ar)
+            phi = erfc_ar * inv_r
+            mag = (erfc_ar * inv_r
+                   + two_over_sqrt_pi * alpha_t * jnp.exp(-ar * ar)
+                   ) * inv_r * inv_r
+        else:
+            phi = inv_r
+            mag = inv_r * inv_r * inv_r
+        e_pair = jnp.where(ok, 0.5 * qq * phi, 0.0)
+        coef = jnp.where(ok, qq * mag, 0.0)
+        # force on own atom: -sum coef * d (d points own -> cand)
+        return e_pair, -coef * dx, -coef * dy, -coef * dz
+
+    return body
+
+
+def _cn_body(cutoff, k1):
+    """D3 coordination-number body (logistic counting fn) for the
+    fullspace stencil sweep (reference: dispersion/dftd3.py:832-940)."""
+    cutoff_sq = float(cutoff) ** 2
+    k1 = float(k1)
+
+    def body(own, cand):
+        ok, inv_r, _r2m, *_ = _geom(own, cand, cutoff_sq)
+        rc = own["rcov"] + cand["rcov"]
+        f = jnp.where(ok, 1.0 / (1.0 + jnp.exp(-k1 * (rc * inv_r - 1.0))), 0.0)
+        return (f,)
+
+    return body
+
+
+def _chain_body(cutoff, k1):
+    """D3 CN chain-rule force body for the fullspace stencil sweep
+    (reference: dispersion/dftd3.py:1133-1258)."""
+    cutoff_sq = float(cutoff) ** 2
+    k1 = float(k1)
+
+    def body(own, cand):
+        ok, inv_r, _r2m, dx, dy, dz = _geom(own, cand, cutoff_sq)
+        rc = own["rcov"] + cand["rcov"]
+        rrq = rc * inv_r
+        f_cn = 1.0 / (1.0 + jnp.exp(-k1 * (rrq - 1.0)))
+        dcn_dr_r = -f_cn * (1.0 - f_cn) * k1 * rrq * inv_r * inv_r
+        coef = jnp.where(ok, (own["decn"] + cand["decn"]) * dcn_dr_r, 0.0)
+        return coef * dx, coef * dy, coef * dz
+
+    return body
 
 
 def stencil_sweep_fullspace_stack(sg: StencilGrid, ext_named, own_named,
                                   body, num_out: int, group: int = 114):
     """Full-space own-only sweep via materialized shifted-view stacks.
 
-    Same contract as ``pallas.stencil_sweep.stencil_sweep_fullspace`` (all
-    ``(2R+1)^3 - 1`` offsets, own-side accumulation only, energies split
-    half to each side), but pure XLA: each group of offsets becomes one
-    stacked candidate tensor ``[G, Cz, W0]`` per plane and one broadcast
-    body + offset-axis reduce — a single wide fusion with no carry chain
-    and no per-offset kernel granularity (the half-space fold measured
-    ~48 us/offset-step; the stack trades ~0.6 GB of HBM stack traffic per
-    pass at 110k atoms, ~0.5 ms, for full data parallelism).  2x the pair
-    visits of the half-space fold, all at VPU rate.
+    Full-space sweep contract (all ``(2R+1)^3 - 1`` offsets, own-side
+    accumulation only, energies split half to each side): each group of
+    offsets becomes one stacked candidate tensor ``[G, Cz, W0]`` per
+    plane and one broadcast body + offset-axis reduce — a single wide
+    fusion with no carry chain, at the cost of materializing the stacks
+    and 2x the pair visits of the half-space fold.
     """
-    from nvalchemiops_tpu.pallas.stencil_sweep import _full_offsets
-
     rz, ry, rx = sg.radius
     cz = sg.dims[0]
     ez, ey, ex = sg.ext_dims
@@ -525,8 +611,6 @@ def stencil_sweep_fullspace_fused(sg: StencilGrid, ext_named, own_named,
     a balanced pairwise tree, leaving XLA one wide fusion with [Cz, W0]
     intermediates only.
     """
-    from nvalchemiops_tpu.pallas.stencil_sweep import _full_offsets
-
     rz, ry, rx = sg.radius
     cz = sg.dims[0]
     ez, ey, ex = sg.ext_dims
@@ -568,10 +652,11 @@ def stencil_coulomb_energy_forces(sg: StencilGrid, charges, cutoff,
     """(Damped-)Coulomb per-atom energies/forces on the voxel stencil.
 
     Numerically matches ``grid.grid_coulomb_energy_forces`` (same pair
-    math, different traversal order).  ``engine``: ``"pallas"`` (TPU
-    default — VMEM-resident full-space Mosaic kernel,
-    pallas/stencil_sweep.py) or ``"xla"`` (half-space fold sweep,
-    non-TPU default and reference implementation).
+    math, different traversal order).  ``engine``: ``"xla"`` (default;
+    half-space fold sweep and reference implementation), ``"stack"`` or
+    ``"fuse"`` (full-space sweeps, see :func:`stencil_sweep_fullspace_stack`
+    and :func:`stencil_sweep_fullspace_fused`); other names raise
+    ``ValueError``.
     """
     dtype = sg.ext_px.dtype
     cutoff_sq = float(cutoff) ** 2
@@ -583,23 +668,15 @@ def stencil_coulomb_energy_forces(sg: StencilGrid, charges, cutoff,
     q_ext = extend_stencil(sg, q_int, 0.0)
 
     eng = _resolve_engine(engine)
-    if eng in ("pallas", "stack", "fuse"):
-        from nvalchemiops_tpu.pallas import stencil_sweep as ss
-
+    if eng in ("stack", "fuse"):
         ext_named = (("q", q_ext),)
         own_named = (("q", own_flat_from_interior(sg, q_int)),)
         if eng == "stack":
             e, fx, fy, fz = stencil_sweep_fullspace_stack(
-                sg, ext_named, own_named, ss.coulomb_body(cutoff, alpha), 4)
-        elif eng == "fuse":
-            e, fx, fy, fz = stencil_sweep_fullspace_fused(
-                sg, ext_named, own_named, ss.coulomb_body(cutoff, alpha), 4)
+                sg, ext_named, own_named, _coulomb_body(cutoff, alpha), 4)
         else:
-            e, fx, fy, fz = ss.stencil_sweep_fullspace(
-                sg, ext_named, own_named,
-                ss.coulomb_body(cutoff, alpha), 4,
-                interpret=jax.default_backend() not in ("tpu",),
-            )
+            e, fx, fy, fz = stencil_sweep_fullspace_fused(
+                sg, ext_named, own_named, _coulomb_body(cutoff, alpha), 4)
         e_pl = own_interior(sg, e)
         fx_pl = own_interior(sg, fx)
         fy_pl = own_interior(sg, fy)
@@ -682,22 +759,15 @@ def stencil_coordination_numbers(sg: StencilGrid, rcov_per_atom, cutoff,
         rcov_int, rcov_ext = rcov_planes
 
     eng = _resolve_engine(engine)
-    if eng in ("pallas", "stack", "fuse"):
-        from nvalchemiops_tpu.pallas import stencil_sweep as ss
-
+    if eng in ("stack", "fuse"):
         ext_named = (("rcov", rcov_ext),)
         own_named = (("rcov", own_flat_from_interior(sg, rcov_int)),)
         if eng == "stack":
             (cn,) = stencil_sweep_fullspace_stack(
-                sg, ext_named, own_named, ss.cn_body(cutoff, k1), 1)
-        elif eng == "fuse":
-            (cn,) = stencil_sweep_fullspace_fused(
-                sg, ext_named, own_named, ss.cn_body(cutoff, k1), 1)
+                sg, ext_named, own_named, _cn_body(cutoff, k1), 1)
         else:
-            (cn,) = ss.stencil_sweep_fullspace(
-                sg, ext_named, own_named, ss.cn_body(cutoff, k1), 1,
-                interpret=jax.default_backend() not in ("tpu",),
-            )
+            (cn,) = stencil_sweep_fullspace_fused(
+                sg, ext_named, own_named, _cn_body(cutoff, k1), 1)
         return gather_from_stencil(sg, own_interior(sg, cn))
 
     def kern(cn, own, cand):
@@ -743,23 +813,16 @@ def stencil_cn_chain_forces(sg: StencilGrid, rcov_per_atom, decn_per_atom,
     decn_ext = extend_stencil(sg, decn_int, 0.0)
 
     eng = _resolve_engine(engine)
-    if eng in ("pallas", "stack", "fuse"):
-        from nvalchemiops_tpu.pallas import stencil_sweep as ss
-
+    if eng in ("stack", "fuse"):
         ext_named = (("rcov", rcov_ext), ("decn", decn_ext))
         own_named = (("rcov", own_flat_from_interior(sg, rcov_int)),
                      ("decn", own_flat_from_interior(sg, decn_int)))
         if eng == "stack":
             fx, fy, fz = stencil_sweep_fullspace_stack(
-                sg, ext_named, own_named, ss.chain_body(cutoff, k1), 3)
-        elif eng == "fuse":
-            fx, fy, fz = stencil_sweep_fullspace_fused(
-                sg, ext_named, own_named, ss.chain_body(cutoff, k1), 3)
+                sg, ext_named, own_named, _chain_body(cutoff, k1), 3)
         else:
-            fx, fy, fz = ss.stencil_sweep_fullspace(
-                sg, ext_named, own_named, ss.chain_body(cutoff, k1), 3,
-                interpret=jax.default_backend() not in ("tpu",),
-            )
+            fx, fy, fz = stencil_sweep_fullspace_fused(
+                sg, ext_named, own_named, _chain_body(cutoff, k1), 3)
         return jnp.stack(gather_rows_from_stencil(
             sg, (own_interior(sg, fx), own_interior(sg, fy),
                  own_interior(sg, fz))), axis=-1)

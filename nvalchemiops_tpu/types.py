@@ -2,8 +2,8 @@
 """Dtype policy helpers.
 
 The reference maps torch dtypes onto Warp scalar/vector/matrix types
-(reference: nvalchemiops/types.py:20-53).  On TPU there is no separate kernel
-type system — JAX arrays flow straight into XLA/Pallas — so this module only
+(reference: nvalchemiops/types.py:20-53).  Here there is no separate kernel
+type system — JAX arrays flow straight into XLA — so this module only
 centralizes the dtype conventions used across the library:
 
 - ``INDEX_DTYPE``: neighbor matrices, shift matrices, counters are int32.

@@ -178,51 +178,6 @@ def test_dense_images_shell_regime_pruned_combos():
     np.testing.assert_allclose(np.asarray(f_d), np.asarray(f_m), atol=1e-9)
 
 
-def test_dense_pallas_engine_matches_xla():
-    """Triangle-block Mosaic dense sweep (interpret) vs the XLA planes,
-    incl. padding atoms and the beyond-minimum-image combo sweep."""
-    rng = np.random.default_rng(5)
-    npa, box, cutoff = 140, 9.0, 6.3  # cutoff/width = 0.7 -> 7 combos
-    pos = jnp.asarray(rng.uniform(0, box, (npa, 3)), jnp.float32)
-    cell = jnp.asarray(np.eye(3) * box, jnp.float32)
-    zmax = 4
-    numbers = jnp.asarray(
-        np.r_[rng.integers(1, zmax + 1, npa - 9), np.zeros(9)].astype(
-            np.int32))
-    rcov, r4r2, c6, cna = _tables(rng, zmax)
-
-    e_x, f_x, cn_x = dense_dftd3(pos, numbers, cell, cutoff, rcov, r4r2,
-                                 c6, cna, 0.42, 4.1, 1.7)
-    e_p, f_p, cn_p = dense_dftd3(pos, numbers, cell, cutoff, rcov, r4r2,
-                                 c6, cna, 0.42, 4.1, 1.7, engine="pallas",
-                                 block=128, interpret=True)
-    np.testing.assert_allclose(np.asarray(cn_p), np.asarray(cn_x), atol=2e-5)
-    np.testing.assert_allclose(float(e_p), float(e_x), rtol=2e-6)
-    np.testing.assert_allclose(np.asarray(f_p), np.asarray(f_x), atol=2e-5)
-    assert np.abs(np.asarray(f_p)[-9:]).max() == 0.0
-
-
-def test_batch_dense_pallas_matches_xla():
-    rng = np.random.default_rng(6)
-    B, npa, box, cutoff = 3, 150, 12.0, 4.0
-    pos = jnp.asarray(rng.uniform(0, box, (B, npa, 3)), jnp.float32)
-    cells = jnp.asarray(
-        np.stack([np.eye(3) * (box + 0.4 * i) for i in range(B)]),
-        jnp.float32)
-    zmax = 4
-    numbers = jnp.asarray(rng.integers(1, zmax + 1, (B, npa)), jnp.int32)
-    rcov, r4r2, c6, cna = _tables(rng, zmax)
-
-    e_x, f_x, cn_x = batch_dense_dftd3(pos, numbers, cells, cutoff, rcov,
-                                       r4r2, c6, cna, 0.42, 4.1, 1.7)
-    e_p, f_p, cn_p = batch_dense_dftd3(
-        pos, numbers, cells, cutoff, rcov, r4r2, c6, cna, 0.42, 4.1, 1.7,
-        engine="pallas", block=128, interpret=True)
-    np.testing.assert_allclose(np.asarray(e_p), np.asarray(e_x), rtol=2e-6)
-    np.testing.assert_allclose(np.asarray(f_p), np.asarray(f_x), atol=2e-5)
-    np.testing.assert_allclose(np.asarray(cn_p), np.asarray(cn_x), atol=2e-5)
-
-
 def test_batch_dense_matches_per_system():
     rng = np.random.default_rng(1)
     B, npa, box, cutoff = 3, 150, 12.0, 4.0

@@ -323,7 +323,7 @@ def test_matrix_path_matches_numpy_oracle():
     np.testing.assert_allclose(float(jnp.sum(e)), e_np, rtol=1e-9)
 
 
-@pytest.mark.parametrize("engine", ["xla", "block"])
+@pytest.mark.parametrize("engine", ["xla"])
 def test_grid_matches_matrix_real_format(engine):
     pos, numbers, cell = _organic_box(n=180, box=14.0, seed=5)
     cutoff = 4.2

@@ -91,21 +91,3 @@ def test_batch_pme_charge_gradients_match_autodiff():
                                                 (16, 16, 16))))(q)
     np.testing.assert_allclose(np.asarray(cg), np.asarray(want),
                                rtol=1e-8, atol=1e-10)
-
-
-def test_batch_pme_pallas_engines_match_xla():
-    """vmapped Mosaic spread/gather kernels == the jnp windowed path."""
-    rng = np.random.default_rng(11)
-    B, npa, box = 3, 200, 16.0
-    pos = jnp.asarray(rng.uniform(0, box, (B, npa, 3)), jnp.float32)
-    q = jnp.asarray(rng.normal(size=(B, npa)), jnp.float32)
-    cell = jnp.asarray(np.eye(3) * box, jnp.float32)
-    mesh = (16, 16, 16)
-    e_x, f_x = batch_pme_reciprocal(pos, q, cell, 0.5, mesh,
-                                    compute_forces=True)
-    e_p, f_p = batch_pme_reciprocal(pos, q, cell, 0.5, mesh,
-                                    compute_forces=True,
-                                    spread_engine="pallas",
-                                    gather_engine="pallas")
-    np.testing.assert_allclose(np.asarray(e_p), np.asarray(e_x), atol=1e-5)
-    np.testing.assert_allclose(np.asarray(f_p), np.asarray(f_x), atol=1e-5)

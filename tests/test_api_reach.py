@@ -56,8 +56,7 @@ _UNREACHED_ALLOWLIST = {
     "allocate_cell_list",
     "compute_naive_num_shifts",
     "prepare_batch_idx_ptr", "expand_naive_shifts", "expand_full_shifts",
-    "pack_block", "merge_topk", "decode_keys", "block_sweep", "choose_super_chunk", "pack_columns", "dense_sweep",
-    "triangle_blocks", "window_colsT", "window_x_block", "fold_window_j",
+    "pack_block", "merge_topk", "decode_keys",
     "MeshTiles",
 }
 

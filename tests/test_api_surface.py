@@ -1,9 +1,9 @@
 # SPDX-License-Identifier: Apache-2.0
 """Direct exercises for public API previously reached only indirectly.
 
-Round-5 companion to tests/test_api_reach.py: the batch cell-list
+Companion to tests/test_api_reach.py: the batch cell-list
 build/query split, the rebuild-detection convenience wrappers, the
-shift-packing utilities, the exact-VPU math helpers, and the AtomGrid
+shift-packing utilities, the exact-f32 math helpers, and the AtomGrid
 scatter/gather round trip each get a small direct test so they leave
 the unreached allowlist.
 """
@@ -195,7 +195,6 @@ def test_generate_k_vectors_pme_matches_fft_grid():
 def test_small_math_and_heuristic_helpers():
     from nvalchemiops_tpu.grid import use_slot_gather
     from nvalchemiops_tpu.mathops import exp_over_x
-    from nvalchemiops_tpu.pallas.window_sweep import WINDOW_PARK
     from nvalchemiops_tpu.spline import (
         compute_bspline_deconvolution,
         compute_bspline_deconvolution_1d,
@@ -219,7 +218,6 @@ def test_small_math_and_heuristic_helpers():
     # (the vmapped-batch regime) scatter
     assert use_slot_gather(524_288, 700_000)
     assert not use_slot_gather(2_000, 4_000)
-    assert np.isfinite(WINDOW_PARK) and WINDOW_PARK > 1e6
 
 
 def test_mlip_energy_and_batched_forces_direct():

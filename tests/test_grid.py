@@ -203,30 +203,6 @@ def test_grid_dftd3_virial_matches_matrix_path():
                                np.asarray(vir_ref).reshape(3, 3),
                                rtol=1e-6, atol=1e-8)
 
-    # window engine: virial assembled from force planes + raw halo j
-    # accumulators (round-4 VERDICT weak #5 — no more forced xla
-    # fallback for NPT/stress workloads); needs the cell for ghost shifts
-    e_w, f_w, cn_w, vir_w = grid_dftd3(
-        g, jnp.asarray(numbers), jnp.asarray(rcov), jnp.asarray(r4r2),
-        jnp.asarray(c6), cna_j, cutoff, a1, a2, s8, compute_virial=True,
-        engine="window", cell=jnp.asarray(cell),
-    )
-    np.testing.assert_allclose(float(e_w), float(e_ref.sum()), rtol=1e-9)
-    np.testing.assert_allclose(np.asarray(f_w), np.asarray(f_ref),
-                               rtol=1e-7, atol=1e-10)
-    np.testing.assert_allclose(np.asarray(vir_w),
-                               np.asarray(vir_ref).reshape(3, 3),
-                               rtol=1e-6, atol=1e-8)
-    # and a virial request without a cell still answers (xla fallback)
-    outs = grid_dftd3(
-        g, jnp.asarray(numbers), jnp.asarray(rcov), jnp.asarray(r4r2),
-        jnp.asarray(c6), cna_j, cutoff, a1, a2, s8, compute_virial=True,
-        engine="window",
-    )
-    np.testing.assert_allclose(np.asarray(outs[3]),
-                               np.asarray(vir_ref).reshape(3, 3),
-                               rtol=1e-6, atol=1e-8)
-
 
 def test_batch_grid_dftd3_matches_per_system():
     from nvalchemiops_tpu.interactions.dispersion.grid_d3 import (
@@ -278,59 +254,7 @@ def test_element_cn_ref_rejects_general_tables():
         element_cn_ref(jnp.asarray(bad))
 
 
-@pytest.mark.parametrize("engine", ["pallas", "block", "window"])
-def test_grid_dftd3_mosaic_engines_match_xla(engine):
-    """The fused Mosaic engines must reproduce the jnp sweep."""
-    from nvalchemiops_tpu.interactions.dispersion.grid_d3 import grid_dftd3
-
-    rng = np.random.default_rng(11)
-    zmax = 4
-    rcov = np.concatenate([[0.0], rng.uniform(0.6, 1.4, zmax)])
-    r4r2 = np.concatenate([[0.0], rng.uniform(2.0, 6.0, zmax)])
-    cna = np.concatenate([np.zeros((1, 5)), np.cumsum(rng.uniform(0.3, 1.0, (zmax, 5)), 1)])
-    c6 = rng.uniform(5.0, 40.0, (zmax + 1, zmax + 1, 5, 5))
-    c6[0] = 0.0
-    c6[:, 0] = 0.0
-    avail = rng.random((zmax + 1, 5)) < 0.8
-    avail[:, 0] = True
-    avail[0] = False
-    c6 *= avail[:, None, :, None] & avail[None, :, None, :]
-    c6 = 0.5 * (c6 + np.swapaxes(np.swapaxes(c6, 0, 1), 2, 3))
-
-    cell = np.eye(3) * 10.0
-    pos = rng.uniform(0, 10.0, (100, 3))
-    numbers = rng.integers(1, zmax + 1, 100).astype(np.int32)
-    pbc = np.array([True] * 3)
-    g = make_grid(pos, cell, pbc, 3.2, 100)
-    args = (
-        g, jnp.asarray(numbers), jnp.asarray(rcov, jnp.float32),
-        jnp.asarray(r4r2, jnp.float32), jnp.asarray(c6, jnp.float32),
-        jnp.asarray(cna, jnp.float32), 3.2, 0.42, 4.1, 1.7,
-    )
-    e_x, f_x, cn_x = grid_dftd3(*args, engine="xla")
-    e_p, f_p, cn_p = grid_dftd3(*args, engine=engine)
-    np.testing.assert_allclose(float(e_p), float(e_x), rtol=1e-6)
-    np.testing.assert_allclose(np.asarray(f_p), np.asarray(f_x), atol=1e-6)
-    np.testing.assert_allclose(np.asarray(cn_p), np.asarray(cn_x), atol=1e-5)
-
-
-@pytest.mark.parametrize("cap", [48, 90])
-def test_grid_window_subwindow_split_matches_xla(cap):
-    """lane_w > 128 windows (cap > 42) run via the kernel's 128-lane
-    sub-window split (round 4); D3 + Coulomb must match the jnp sweep.
-
-    Round-3 history: the whole-window lane_w=256 Mosaic lowering gave
-    wrong j-side forces on chip, so the window engine was gated to
-    lane_w == 128 and the benchmark-suite geometries (cap 48) fell back
-    to the 4-6x slower xla path.  cap=90 exercises lane_w=384 (3 subs).
-    """
-    from nvalchemiops_tpu.grid import build_atom_grid
-    from nvalchemiops_tpu.interactions.dispersion.grid_d3 import grid_dftd3
-    from nvalchemiops_tpu.pallas.window_sweep import window_lane_width
-
-    assert window_lane_width(cap, 1) > 128
-    rng = np.random.default_rng(17)
-    zmax = 4
+def _toy_d3_tables(rng, zmax=4):
     rcov = np.concatenate([[0.0], rng.uniform(0.6, 1.4, zmax)])
     r4r2 = np.concatenate([[0.0], rng.uniform(2.0, 6.0, zmax)])
     cna = np.concatenate([np.zeros((1, 5)),
@@ -339,38 +263,59 @@ def test_grid_window_subwindow_split_matches_xla(cap):
     c6[0] = 0.0
     c6[:, 0] = 0.0
     c6 = 0.5 * (c6 + np.swapaxes(np.swapaxes(c6, 0, 1), 2, 3))
+    return rcov, r4r2, cna, c6
+
+
+@pytest.mark.parametrize(
+    "dims,radius,cap",
+    [((3, 3, 3), (1, 1, 1), 48),    # capacity far above the occupancy
+     ((3, 3, 3), (1, 1, 1), 90),
+     ((3, 3, 6), (1, 1, 2), 24)],   # x binned at half the cutoff
+    ids=["cap48", "cap90", "xfine"])
+def test_grid_xla_forced_geometry_matches_matrix_path(dims, radius, cap):
+    """Grid D3 + Coulomb at forced capacities and an x-refined partition
+    equal the matrix-path kernels on a naive neighbor matrix."""
+    from nvalchemiops_tpu.grid import build_atom_grid
+    from nvalchemiops_tpu.interactions.dispersion import D3Parameters, dftd3
+    from nvalchemiops_tpu.interactions.dispersion.grid_d3 import grid_dftd3
+
+    rng = np.random.default_rng(17)
+    rcov, r4r2, cna, c6 = _toy_d3_tables(rng)
+    cn_ref_full = np.broadcast_to(cna[:, None, :, None], c6.shape).copy()
+    params = D3Parameters(rcov=rcov, r4r2=r4r2, c6ab=c6, cn_ref=cn_ref_full)
 
     cell = np.eye(3) * 9.0
     n = 140
     pos = rng.uniform(0, 9.0, (n, 3))
-    numbers = rng.integers(1, zmax + 1, n).astype(np.int32)
-    q = rng.normal(size=n).astype(np.float32)
+    numbers = rng.integers(1, 5, n).astype(np.int32)
+    q = rng.normal(size=n)
     pbc = np.array([True] * 3)
     cutoff = 3.0
-    # dense bins: dims (3,3,3) at 140 atoms -> ~5 atoms/cell, but the
-    # explicit cap forces the multi-register window layout regardless
-    g = build_atom_grid(jnp.asarray(pos, jnp.float32),
-                        jnp.asarray(cell, jnp.float32), pbc,
-                        (3, 3, 3), (1, 1, 1), cap)
-    args = (
-        g, jnp.asarray(numbers), jnp.asarray(rcov, jnp.float32),
-        jnp.asarray(r4r2, jnp.float32), jnp.asarray(c6, jnp.float32),
-        jnp.asarray(cna, jnp.float32), cutoff, 0.42, 4.1, 1.7,
-    )
-    e_x, f_x, cn_x = grid_dftd3(*args, engine="xla")
-    e_w, f_w, cn_w = grid_dftd3(*args, engine="window")
-    np.testing.assert_allclose(float(e_w), float(e_x), rtol=1e-6)
-    np.testing.assert_allclose(np.asarray(f_w), np.asarray(f_x), atol=1e-6)
-    np.testing.assert_allclose(np.asarray(cn_w), np.asarray(cn_x), atol=1e-5)
-    for alpha in (0.0, 0.4):
-        e_cx, f_cx = grid_coulomb_energy_forces(g, jnp.asarray(q), cutoff,
-                                                alpha)
-        e_cw, f_cw = grid_coulomb_energy_forces(g, jnp.asarray(q), cutoff,
-                                                alpha, engine="window")
-        np.testing.assert_allclose(np.asarray(e_cw), np.asarray(e_cx),
-                                   atol=1e-5)
-        np.testing.assert_allclose(np.asarray(f_cw), np.asarray(f_cx),
-                                   atol=1e-5)
+    g = build_atom_grid(jnp.asarray(pos), jnp.asarray(cell), pbc, dims,
+                        radius, cap)
+    assert int(g.counts_max) <= cap
+    e_g, f_g, cn_g = grid_dftd3(
+        g, jnp.asarray(numbers), jnp.asarray(rcov), jnp.asarray(r4r2),
+        jnp.asarray(c6), jnp.asarray(cna), cutoff, 0.42, 4.1, 1.7)
+
+    nm, _num, sh = naive_neighbor_list(jnp.asarray(pos), cutoff, pbc=pbc,
+                                       cell=jnp.asarray(cell))
+    e_m, f_m, cn_m = dftd3(
+        jnp.asarray(pos), jnp.asarray(numbers), 0.42, 4.1, 1.7,
+        d3_params=params, cell=jnp.asarray(cell), neighbor_matrix=nm,
+        neighbor_matrix_shifts=sh, output_dtype=None)
+    np.testing.assert_allclose(np.asarray(cn_g), np.asarray(cn_m), rtol=1e-10)
+    np.testing.assert_allclose(float(e_g), float(jnp.sum(e_m)), rtol=1e-10)
+    np.testing.assert_allclose(np.asarray(f_g), np.asarray(f_m), rtol=1e-8,
+                               atol=1e-12)
+
+    e_c, f_c = grid_coulomb_energy_forces(g, jnp.asarray(q), cutoff, 0.4)
+    e_cm, f_cm = coulomb_energy_forces(
+        jnp.asarray(pos), jnp.asarray(q), jnp.asarray(cell), cutoff, 0.4,
+        neighbor_matrix=nm, neighbor_matrix_shifts=sh)
+    # the grid uses the Abramowitz-Stegun erfc (1.5e-7 abs) by design
+    np.testing.assert_allclose(np.asarray(e_c), np.asarray(e_cm), atol=5e-6)
+    np.testing.assert_allclose(np.asarray(f_c), np.asarray(f_cm), atol=5e-6)
 
 
 def test_grid_origin_shift_preserves_results():
@@ -403,8 +348,8 @@ def test_grid_origin_shift_preserves_results():
     np.testing.assert_allclose(np.asarray(f1), np.asarray(f0), atol=1e-5)
 
 
-@pytest.mark.parametrize("fused_engine", ["block", "window"])
-def test_grid_dftd3_coulomb_fused_matches_separate(fused_engine):
+@pytest.mark.parametrize("alpha,ccut", [(0.0, 3.2), (0.35, 2.8)])
+def test_grid_dftd3_coulomb_fused_matches_separate(alpha, ccut):
     """The fused D3+Coulomb sweep must equal the two separate calls."""
     from nvalchemiops_tpu.interactions.dispersion.grid_d3 import (
         grid_dftd3, grid_dftd3_coulomb,
@@ -430,56 +375,60 @@ def test_grid_dftd3_coulomb_fused_matches_separate(fused_engine):
     tables = (jnp.asarray(numbers), jnp.asarray(rcov, jnp.float32),
               jnp.asarray(r4r2, jnp.float32), jnp.asarray(c6, jnp.float32),
               jnp.asarray(cna, jnp.float32))
-    for alpha, ccut in ((0.0, cutoff), (0.35, 2.8)):
-        e_d, f_d, cn_d, e_c, f_c = grid_dftd3_coulomb(
-            g, tables[0], jnp.asarray(q), *tables[1:], cutoff, 0.42, 4.1, 1.7,
-            coulomb_cutoff=ccut, alpha=alpha, engine=fused_engine,
-        )
-        e_ref, f_ref, cn_ref = grid_dftd3(g, *tables, cutoff, 0.42, 4.1, 1.7,
-                                          engine=fused_engine)
-        ec_ref, fc_ref = grid_coulomb_energy_forces(g, jnp.asarray(q), ccut, alpha)
-        np.testing.assert_allclose(float(e_d), float(e_ref), rtol=1e-6)
-        np.testing.assert_allclose(np.asarray(f_d), np.asarray(f_ref), atol=1e-6)
-        np.testing.assert_allclose(np.asarray(cn_d), np.asarray(cn_ref), atol=1e-5)
-        np.testing.assert_allclose(np.asarray(e_c), np.asarray(ec_ref), atol=1e-5)
-        np.testing.assert_allclose(np.asarray(f_c), np.asarray(fc_ref), atol=1e-5)
+    e_d, f_d, cn_d, e_c, f_c = grid_dftd3_coulomb(
+        g, tables[0], jnp.asarray(q), *tables[1:], cutoff, 0.42, 4.1, 1.7,
+        coulomb_cutoff=ccut, alpha=alpha,
+    )
+    e_ref, f_ref, cn_ref = grid_dftd3(g, *tables, cutoff, 0.42, 4.1, 1.7)
+    ec_ref, fc_ref = grid_coulomb_energy_forces(g, jnp.asarray(q), ccut, alpha)
+    np.testing.assert_allclose(float(e_d), float(e_ref), rtol=1e-6)
+    np.testing.assert_allclose(np.asarray(f_d), np.asarray(f_ref), atol=1e-6)
+    np.testing.assert_allclose(np.asarray(cn_d), np.asarray(cn_ref), atol=1e-5)
+    np.testing.assert_allclose(np.asarray(e_c), np.asarray(ec_ref), atol=1e-5)
+    np.testing.assert_allclose(np.asarray(f_c), np.asarray(fc_ref), atol=1e-5)
 
-        # combine_forces: same per-channel energies, summed force planes,
-        # trailing f_coulomb None — on every engine (the window engine
-        # folds in-kernel, 6 + 5 pass-2 outputs; see _grid_d3_window_impl)
-        e_d2, f_t, cn2, e_c2, f_none = grid_dftd3_coulomb(
-            g, tables[0], jnp.asarray(q), *tables[1:], cutoff, 0.42, 4.1,
-            1.7, coulomb_cutoff=ccut, alpha=alpha, engine=fused_engine,
-            combine_forces=True,
-        )
-        assert f_none is None
-        np.testing.assert_allclose(float(e_d2), float(e_ref), rtol=1e-6)
-        np.testing.assert_allclose(np.asarray(cn2), np.asarray(cn_ref),
-                                   atol=1e-5)
-        np.testing.assert_allclose(np.asarray(e_c2), np.asarray(ec_ref),
-                                   atol=1e-5)
-        np.testing.assert_allclose(
-            np.asarray(f_t), np.asarray(f_ref) + np.asarray(fc_ref),
-            atol=1e-5)
+    # combine_forces: same per-channel energies, summed force planes,
+    # trailing f_coulomb None
+    e_d2, f_t, cn2, e_c2, f_none = grid_dftd3_coulomb(
+        g, tables[0], jnp.asarray(q), *tables[1:], cutoff, 0.42, 4.1,
+        1.7, coulomb_cutoff=ccut, alpha=alpha,
+        combine_forces=True,
+    )
+    assert f_none is None
+    np.testing.assert_allclose(float(e_d2), float(e_ref), rtol=1e-6)
+    np.testing.assert_allclose(np.asarray(cn2), np.asarray(cn_ref),
+                               atol=1e-5)
+    np.testing.assert_allclose(np.asarray(e_c2), np.asarray(ec_ref),
+                               atol=1e-5)
+    np.testing.assert_allclose(
+        np.asarray(f_t), np.asarray(f_ref) + np.asarray(fc_ref),
+        atol=1e-5)
 
 
-@pytest.mark.parametrize("engine", ["block", "window"])
-def test_grid_coulomb_mosaic_engines_match_xla(engine):
-    """The Mosaic Coulomb engines must reproduce the jnp sweep."""
-    from nvalchemiops_tpu.grid import grid_coulomb_energy_forces
-
+@pytest.mark.parametrize("cap", [16, 40])
+def test_grid_coulomb_matches_matrix_path_at_cap(cap):
+    """Slab-periodic grid Coulomb at two capacities == neighbor matrix."""
     rng = np.random.default_rng(5)
     cell = np.eye(3) * 12.0
     pos = rng.uniform(0, 12.0, (150, 3))
-    q = rng.normal(size=150).astype(np.float32)
+    q = rng.normal(size=150)
     pbc = np.array([True, True, False])
-    g = make_grid(pos, cell, pbc, 3.5, 150)
+    dims, radius, _ = estimate_grid_geometry(cell, pbc, 3.5, 150,
+                                             target_occupancy=0.4)
+    g = build_atom_grid(jnp.asarray(pos), jnp.asarray(cell), pbc, dims,
+                        radius, cap)
+    assert int(g.counts_max) <= cap
+    nm, _num, sh = naive_neighbor_list(jnp.asarray(pos), 3.5, pbc=pbc,
+                                       cell=jnp.asarray(cell))
     for alpha in (0.0, 0.4):
-        e_x, f_x = grid_coulomb_energy_forces(g, jnp.asarray(q), 3.5, alpha)
-        e_b, f_b = grid_coulomb_energy_forces(g, jnp.asarray(q), 3.5, alpha,
-                                              engine=engine)
-        np.testing.assert_allclose(np.asarray(e_b), np.asarray(e_x), atol=1e-5)
-        np.testing.assert_allclose(np.asarray(f_b), np.asarray(f_x), atol=1e-5)
+        e_g, f_g = grid_coulomb_energy_forces(g, jnp.asarray(q), 3.5, alpha)
+        e_m, f_m = coulomb_energy_forces(
+            jnp.asarray(pos), jnp.asarray(q), jnp.asarray(cell), 3.5, alpha,
+            neighbor_matrix=nm, neighbor_matrix_shifts=sh)
+        np.testing.assert_allclose(np.asarray(e_g), np.asarray(e_m),
+                                   atol=5e-6)
+        np.testing.assert_allclose(np.asarray(f_g), np.asarray(f_m),
+                                   atol=5e-6)
 
 
 def test_grid_auto_nonperiodic_lumpy_occupancy():
@@ -515,9 +464,8 @@ def test_grid_auto_nonperiodic_lumpy_occupancy():
 def test_grid_d3_quad_bilinear_bitwise_matches_split():
     """bilinear="quad" stacks pass-2's three dots into one quadrant dot.
 
-    The MXU tiles both layouts identically, so the energy plane must be
-    BIT-identical; the layout is kept only as the measured-loss record
-    for design rule 9 (benchmarks/d3_quad_probe.py).
+    Both layouts compute the same dot products, so the energy plane must
+    be BIT-identical.
     """
     from nvalchemiops_tpu.grid import _extend_like, scatter_to_grid
     from nvalchemiops_tpu.interactions.dispersion import grid_d3 as gd3
@@ -713,6 +661,34 @@ def test_choose_grid_geometry_valid_and_consistent():
     np.testing.assert_allclose(np.asarray(f_a), np.asarray(f_b), atol=1e-4)
 
 
+def test_choose_grid_geometry_minimizes_row_sweep_slots():
+    """The pick has the fewest row-sweep slots among the searched dims."""
+    from nvalchemiops_tpu.grid import (
+        choose_grid_geometry, choose_grid_origin, row_sweep_slots,
+    )
+
+    rng = np.random.default_rng(19)
+    base = np.stack(
+        np.meshgrid(*[np.arange(8) * 2.0] * 3, indexing="ij"), -1
+    ).reshape(-1, 3)
+    pos = jnp.asarray(base + rng.uniform(-0.1, 0.1, base.shape), jnp.float32)
+    cell = jnp.asarray(np.eye(3) * 16.0, jnp.float32)
+    pbc = np.array([True] * 3)
+    cutoff = 3.9
+    alternatives = [(4, 4, 4), (4, 4, 8), (8, 8, 8), (3, 3, 3)]
+    dims, radius, cap, _origin = choose_grid_geometry(
+        pos, cell, pbc, cutoff, dims_candidates=alternatives)
+    best = row_sweep_slots(dims, radius, cap)
+    for alt in alternatives:
+        alt_radius = tuple(int(np.ceil(cutoff * d / 16.0)) for d in alt)
+        _, occ = choose_grid_origin(pos, cell, pbc, alt)
+        alt_cap = max(int(np.ceil((occ + 1) / 8)) * 8,
+                      int(np.ceil(occ * 1.02 / 8)) * 8)
+        assert best <= row_sweep_slots(alt, alt_radius, alt_cap), alt
+    # the slot formula itself: own-row band plus full windows elsewhere
+    assert row_sweep_slots((2, 3, 4), (1, 1, 1), 8) == 24 * 64 * (2 + 4 * 3)
+
+
 def test_grid_dftd3_coulomb_xla_engine_matches_separate():
     """Fused xla-engine D3+Coulomb == separate grid_dftd3 + grid Coulomb."""
     from nvalchemiops_tpu.grid import grid_coulomb_energy_forces
@@ -815,9 +791,9 @@ def test_grid_dftd3_mixed_pbc_matches_matrix_path(pbc):
 def test_batch_build_matches_vmapped_single(pbc, shared_cell):
     """batch_build_atom_grid is field-for-field == jax.vmap(build_atom_grid).
 
-    The fused builder exists purely for chip performance (one global
-    compound-key sort instead of a batched sort; round-4 VERDICT weak #2),
-    so its contract is bit-identical output.
+    The fused builder exists purely for performance (one global
+    compound-key sort instead of a batched sort), so its contract is
+    bit-identical output.
     """
     import jax
     from nvalchemiops_tpu.grid import batch_build_atom_grid

@@ -20,6 +20,7 @@ def _py_files():
                 os.path.join(dirpath, f) for f in files if f.endswith(".py")
             )
     out.append(os.path.join(ROOT, "bench.py"))
+    out.append(os.path.join(ROOT, "chip_smoke.py"))
     return sorted(out)
 
 

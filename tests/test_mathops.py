@@ -164,7 +164,7 @@ def test_gto_density_l0_gradient_finite_difference():
 
 
 def test_matmul_rfft_convolve_matches_fft():
-    """MXU matmul DFT convolution == rfftn/irfftn pipeline (all shapes)."""
+    """Matmul DFT convolution == rfftn/irfftn pipeline (all shapes)."""
     from nvalchemiops_tpu.mathops.matmul_dft import matmul_rfft_convolve
 
     rng = np.random.default_rng(0)

@@ -81,44 +81,36 @@ def test_overflow_falls_back_to_dense():
     assert np.isfinite(np.asarray(v)).all()
 
 
-def test_pallas_windowed_gather_grad_matches_jnp():
-    from nvalchemiops_tpu.pallas.windowed_gather import (
-        pallas_windowed_gather_grad,
-    )
+@pytest.mark.parametrize("clustered", [False, True],
+                         ids=["windowed", "overflow"])
+def test_spline_gather_128_mesh_matches_windowed(clustered):
+    """Public single-system gather at a 128^3 mesh == the windowed gather.
+
+    The clustered case overflows one tile, so the public path takes its
+    dense separable-matmul branch; both branches are compiled either way.
+    """
     import nvalchemiops_tpu.spline_windowed as sw
 
-    rng = np.random.default_rng(7)
-    n, box = 400, 10.0
-    mesh_dims = (16, 16, 16)
-    pos = jnp.asarray(rng.uniform(0, box, (n, 3)), jnp.float32)
-    cell = jnp.asarray(np.eye(3) * box, jnp.float32)
-    cap = sw.mesh_tile_capacity(n, mesh_dims)
-    tiles = sw.build_mesh_tiles(pos, cell, mesh_dims, 4, cap, need_grad=True)
-    mesh = jnp.asarray(rng.normal(size=mesh_dims), jnp.float32)
-    v_ref, g_ref = sw.windowed_gather(tiles, mesh, with_gradient=True)
-    v_p, g_p = pallas_windowed_gather_grad(tiles, mesh)
-    np.testing.assert_allclose(np.asarray(v_p), np.asarray(v_ref), atol=1e-5)
-    np.testing.assert_allclose(np.asarray(g_p), np.asarray(g_ref), atol=1e-4)
-
-
-def test_pme_gather_engine_pallas_matches_xla():
-    from nvalchemiops_tpu.interactions.electrostatics.pme import (
-        _pme_reciprocal_impl,
-    )
-
-    rng = np.random.default_rng(8)
-    n, box = 300, 9.0
-    pos = jnp.asarray(rng.uniform(0, box, (n, 3)), jnp.float32)
+    rng = np.random.default_rng(21)
+    dims, n, box = (128, 128, 128), 96, 40.0
+    lo, hi = (0.0, 0.2) if clustered else (0.0, box)
+    pos = jnp.asarray(rng.uniform(lo, hi, (n, 3)), jnp.float32)
     q = jnp.asarray(rng.normal(size=n), jnp.float32)
-    cell = jnp.asarray(np.eye(3) * box, jnp.float32).reshape(1, 3, 3)
-    alpha = jnp.asarray([0.8], jnp.float32)
-    e_x, f_x, _ = _pme_reciprocal_impl(
-        pos, q, cell, alpha, (16, 16, 16), 4, None, True, False, None, None)
-    e_p, f_p, _ = _pme_reciprocal_impl(
-        pos, q, cell, alpha, (16, 16, 16), 4, None, True, False, None, None,
-        gather_engine="pallas")
-    np.testing.assert_allclose(np.asarray(e_p), np.asarray(e_x), atol=1e-5)
-    np.testing.assert_allclose(np.asarray(f_p), np.asarray(f_x), atol=1e-4)
+    cell = jnp.asarray(np.eye(3) * box, jnp.float32)
+    phi = jnp.asarray(rng.normal(size=dims), jnp.float32)
+
+    tiles = sw.build_mesh_tiles(pos, cell, dims, 4, n, need_grad=True)
+    v_w, g_w = sw.windowed_gather(tiles, phi, with_gradient=True)
+    f_w = (-q[:, None] * g_w) @ tiles.inv.T
+    overflow = int(tiles.counts_max) > sw.mesh_tile_capacity(n, dims)
+    assert overflow == clustered
+
+    v = spline_gather(pos, phi, cell, spline_order=4)
+    f = spline_gather_gradient(pos, q, phi, cell, spline_order=4)
+    np.testing.assert_allclose(np.asarray(v), np.asarray(v_w),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(f), np.asarray(f_w),
+                               rtol=1e-4, atol=1e-4)
 
 
 def test_refresh_mesh_tiles_and_rebuild_detector():
@@ -165,3 +157,26 @@ def test_refresh_mesh_tiles_and_rebuild_detector():
     pos3 = np.array(pos)
     pos3[7] = (pos3[7] + box / 2.0) % box
     assert bool(sw.mesh_tiles_need_rebuild(tiles, jnp.asarray(pos3)))
+
+
+@pytest.mark.parametrize("order", [1, 2, 3, 4])
+def test_stencil_weights_match_bspline_basis(order):
+    """The local-parameter stencil weights equal M(u), dM/du at u_i."""
+    from nvalchemiops_tpu.spline import (
+        bspline_derivative, bspline_grid_offset, bspline_weight,
+        stencil_weights,
+    )
+
+    theta = jnp.asarray(np.r_[0.0, 0.25, 0.5 - 1e-12, 0.5, 0.77, 1 - 1e-12],
+                        jnp.float64)
+    w, dw = stencil_weights(theta, order)
+    start = bspline_grid_offset(0, order, theta[:, None])[:, 0]
+    i = np.arange(order)
+    u = order / 2 + np.asarray(theta)[:, None] - (i[None] + np.asarray(start)[:, None])
+    np.testing.assert_allclose(np.asarray(w),
+                               np.asarray(bspline_weight(jnp.asarray(u), order)),
+                               atol=1e-12)
+    np.testing.assert_allclose(np.asarray(dw),
+                               np.asarray(bspline_derivative(jnp.asarray(u), order)),
+                               atol=1e-12)
+    np.testing.assert_allclose(np.asarray(w).sum(-1), 1.0, atol=1e-12)

@@ -120,43 +120,6 @@ def test_stencil_f64():
                                atol=1e-14)
 
 
-def test_pallas_fullspace_matches_xla_halfspace():
-    """Interpret-mode Mosaic full-space sweep vs the XLA half-space fold."""
-    from nvalchemiops_tpu.stencil import (
-        stencil_cn_chain_forces,
-        stencil_coordination_numbers,
-    )
-
-    pos, cell = _crystal(n_rep=6)
-    pbc = np.array([True] * 3)
-    cutoff = 6.0
-    rng = np.random.default_rng(9)
-    q = jnp.asarray(rng.normal(size=pos.shape[0]), jnp.float32)
-    rcov = jnp.asarray(rng.uniform(0.8, 1.4, pos.shape[0]), jnp.float32)
-    decn = jnp.asarray(rng.normal(size=pos.shape[0]), jnp.float32)
-    sg = build_stencil_auto(pos, cell, pbc, cutoff)
-
-    e_x, f_x = stencil_coulomb_energy_forces(sg, q, cutoff, 0.35, engine="xla")
-    e_p, f_p = stencil_coulomb_energy_forces(sg, q, cutoff, 0.35,
-                                             engine="pallas")
-    np.testing.assert_allclose(np.asarray(e_p), np.asarray(e_x),
-                               rtol=2e-5, atol=2e-6)
-    np.testing.assert_allclose(np.asarray(f_p), np.asarray(f_x),
-                               rtol=2e-5, atol=2e-6)
-    np.testing.assert_allclose(
-        np.asarray(stencil_coordination_numbers(sg, rcov, cutoff,
-                                                engine="pallas")),
-        np.asarray(stencil_coordination_numbers(sg, rcov, cutoff,
-                                                engine="xla")),
-        rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(
-        np.asarray(stencil_cn_chain_forces(sg, rcov, decn, cutoff,
-                                           engine="pallas")),
-        np.asarray(stencil_cn_chain_forces(sg, rcov, decn, cutoff,
-                                           engine="xla")),
-        rtol=1e-4, atol=2e-5)
-
-
 @pytest.mark.parametrize("eng", ["stack", "fuse"])
 def test_stack_fullspace_matches_xla_halfspace(eng):
     """Full-space XLA sweeps (stack/fuse) vs the half-space fold, 3 bodies."""
